@@ -1,0 +1,19 @@
+"""osqp_tpu_torch: the operator-splitting QP solver on PyTorch and CUDA.
+
+The port of ``osqp_tpu`` to torch tensors on an NVIDIA Hopper GPU.  It imports
+nothing of JAX or of ``osqp_tpu``.  Entry points run on CUDA unless the caller
+passes ``device='cpu'``.  So far it holds the shared-structure batched engine
+(``BatchedOSQP``), whose epoch runs as one hand-written CUDA kernel.
+"""
+
+import torch as _torch
+
+# A QP solver needs true fp32 linear algebra: TF32 keeps about three decimal
+# digits and stalls ADMM far above solver tolerances (the same hazard as
+# bf16 matmul passes on the TPU).
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision('highest')
+
+from .batch import BatchedOSQP  # noqa: E402,F401
+from .constants import SolverStatus, status_string  # noqa: E402,F401

@@ -1,0 +1,57 @@
+"""Solver constants and status codes (own copy of ``osqp_tpu.constants``).
+
+Numeric status values follow the OSQP v1.0 C enum (sequential, starting at
+``OSQP_SOLVED = 1``), so results compare one to one with ``osqp_tpu``.
+"""
+
+from __future__ import annotations
+
+from enum import IntEnum
+
+# Algorithm parameter bounds (OSQP reference purepy _osqp.py:24-45)
+RHO_MIN = 1e-06
+RHO_MAX = 1e06
+RHO_EQ_OVER_RHO_INEQ = 1e03
+RHO_TOL = 1e-04
+
+MIN_SCALING = 1e-04
+MAX_SCALING = 1e04
+
+OSQP_INFTY = 1e30
+
+# Adaptive-rho interval used when ``adaptive_rho_interval == 0`` (a fixed
+# interval keeps solves deterministic).
+ADAPTIVE_RHO_FIXED = 100
+
+
+class SolverStatus(IntEnum):
+    OSQP_SOLVED = 1
+    OSQP_SOLVED_INACCURATE = 2
+    OSQP_PRIMAL_INFEASIBLE = 3
+    OSQP_PRIMAL_INFEASIBLE_INACCURATE = 4
+    OSQP_DUAL_INFEASIBLE = 5
+    OSQP_DUAL_INFEASIBLE_INACCURATE = 6
+    OSQP_MAX_ITER_REACHED = 7
+    OSQP_TIME_LIMIT_REACHED = 8
+    OSQP_NON_CVX = 9
+    OSQP_SIGINT = 10
+    OSQP_UNSOLVED = 11
+
+
+_STATUS_STRINGS = {
+    SolverStatus.OSQP_SOLVED: 'solved',
+    SolverStatus.OSQP_SOLVED_INACCURATE: 'solved inaccurate',
+    SolverStatus.OSQP_PRIMAL_INFEASIBLE: 'primal infeasible',
+    SolverStatus.OSQP_PRIMAL_INFEASIBLE_INACCURATE: 'primal infeasible inaccurate',
+    SolverStatus.OSQP_DUAL_INFEASIBLE: 'dual infeasible',
+    SolverStatus.OSQP_DUAL_INFEASIBLE_INACCURATE: 'dual infeasible inaccurate',
+    SolverStatus.OSQP_MAX_ITER_REACHED: 'maximum iterations reached',
+    SolverStatus.OSQP_TIME_LIMIT_REACHED: 'run time limit reached',
+    SolverStatus.OSQP_NON_CVX: 'problem non convex',
+    SolverStatus.OSQP_SIGINT: 'interrupted',
+    SolverStatus.OSQP_UNSOLVED: 'unsolved',
+}
+
+
+def status_string(status_val: int) -> str:
+    return _STATUS_STRINGS.get(SolverStatus(int(status_val)), 'unknown')

@@ -1,0 +1,93 @@
+"""The port stands alone: it imports neither JAX nor anything of osqp_tpu,
+and its entry points never drift onto the CPU unasked."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import osqp_tpu_torch
+
+PORT = Path(osqp_tpu_torch.__file__).resolve().parent
+ROOT = PORT.parent
+FORBIDDEN = ('jax', 'jaxlib', 'osqp_tpu')
+
+
+def _port_files():
+    files = sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    return [f for f in files if f.exists()]
+
+
+@pytest.mark.parametrize('path', _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_file_imports_jax_or_osqp_tpu(path):
+    """An AST scan of every module of the port and of chip_smoke.py."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or '']
+        else:
+            continue
+        for name in names:
+            assert name.split('.')[0] not in FORBIDDEN, f'{path}: imports {name}'
+
+
+_CHILD = """
+import sys
+sys.modules['jax'] = None
+sys.modules['osqp_tpu'] = None
+import pkgutil, importlib
+import numpy as np, torch
+import osqp_tpu_torch
+for mod in pkgutil.walk_packages(osqp_tpu_torch.__path__, 'osqp_tpu_torch.'):
+    importlib.import_module(mod.name)
+rng = np.random.default_rng(0)
+n, m, B = 4, 6, 5
+L = rng.standard_normal((n, n))
+P = L @ L.T + 0.1 * np.eye(n)
+A = rng.standard_normal((m, n))
+q = rng.standard_normal((B, n))
+s = osqp_tpu_torch.BatchedOSQP(device='cpu')
+s.setup(P, q, A, -np.ones((B, m)), np.ones((B, m)), verbose=False)
+r = s.solve()
+assert (r.info.status_val == 1).all(), r.info.status_val
+assert not any(k == 'jax' or k.startswith(('jax.', 'osqp_tpu.')) for k in sys.modules
+               if sys.modules[k] is not None)
+print('ok')
+"""
+
+
+def test_port_imports_and_solves_without_jax():
+    """A fresh interpreter in which importing jax or osqp_tpu fails imports
+    every module of the port and solves a tiny batch on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, '-c', _CHILD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith('ok')
+
+
+def test_no_device_without_cuda_raises(monkeypatch):
+    """BatchedOSQP() with no device raises when CUDA is absent."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        osqp_tpu_torch.BatchedOSQP()
+    assert osqp_tpu_torch.BatchedOSQP(device='cpu')._device.type == 'cpu'
+
+
+def test_cuda_tensor_without_kernel_raises_not_falls_back(monkeypatch):
+    """The epoch wrapper never swaps in the plain version for a non-CPU
+    tensor: on a device it cannot launch on, it raises."""
+    from osqp_tpu_torch.ops import shared_epoch as tse
+
+    t = torch.zeros(1, device='meta')
+    stg = osqp_tpu_torch.settings.default_core_settings(torch.float32)
+    sc = tse.epoch_scalars(stg, np.float32(1), np.float32(1), 1)
+    with pytest.raises(ValueError, match='unsupported device'):
+        tse.shared_epoch(*([t] * 20), sc)

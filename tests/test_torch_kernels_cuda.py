@@ -1,0 +1,90 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
+neither JAX nor the JAX package, so they also run where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from osqp_tpu_torch import BatchedOSQP
+from osqp_tpu_torch import batch_shared as tbs
+from osqp_tpu_torch.ops import shared_epoch as tse
+from osqp_tpu_torch.settings import OracleSettings, default_core_settings
+
+
+def _problems(B, n, m, seed=0):
+    rng = np.random.default_rng(seed)
+    Lm = rng.standard_normal((n, n)) / np.sqrt(n)
+    P = Lm @ Lm.T + 0.1 * np.eye(n)
+    A = rng.standard_normal((m, n)) / np.sqrt(n)
+    q = rng.standard_normal((B, n))
+    x0 = rng.standard_normal((B, n))
+    s0 = rng.random((B, m)) + 0.1
+    u = x0 @ A.T + s0
+    l = u - 2 * s0
+    return P, A, q, l, u
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_cuda():
+    """The CUDA kernel against its plain version on the card, one epoch from
+    a state with converged and active columns, at a ragged shape in both
+    dtypes.  Statuses equal; f64 values to 1e-9 and f32 values to 1e-4
+    relative (FMA contraction and summation order differ)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        B, n, m = 333, 13, 19
+        P, A, q, l, u = _problems(B, n, m, seed=4)
+        host = OracleSettings(eps_abs=1e-3, eps_rel=1e-3)
+        stg = default_core_settings(dtype, eps_abs=1e-3, eps_rel=1e-3)
+        P_s, A_s, Q, L, U, scal, rho0, Minv, M, rvec = tbs.shared_setup(
+            P, A, q, l, u, host, dtype=dtype, device='cuda')
+        rinv = torch.where(rvec > 0, 1.0 / rvec, 0.0)
+        F, c0 = tbs._build_affine(A_s, A_s.T, Minv, M, rvec, rinv, stg.sigma, stg.alpha, Q)
+        CH, At = torch.cat([P_s, A_s]), A_s.T.contiguous()
+        sc = tse.epoch_scalars(stg, scal.c, scal.cinv, 25)
+        S = torch.zeros((n + 2 * m, B), dtype=dtype, device='cuda')
+        st = (S, S[:n].clone(), S[:m].clone(), S.clone(), S[:n].clone(), S[:m].clone(),
+              torch.full((B,), 11, dtype=torch.int32, device='cuda'))
+        fixed = (F, CH, At, rvec, rinv, scal.D, scal.Dinv, scal.E, scal.Einv, c0, Q, L, U)
+        for _ in range(3):
+            st = tse.shared_epoch_plain(*fixed, *st, sc)[:7]
+        got = tse.shared_epoch(*fixed, *st, sc)
+        torch.cuda.synchronize()
+        want = tse.shared_epoch_plain(*fixed, *st, sc)
+        assert torch.equal(got[6], want[6])
+        for k in (0, 1, 2, 3, 4, 5, 7, 8, 9, 10):
+            scale = want[k].abs().nan_to_num(0, 0, 0).max().clamp(min=1.0)
+            torch.testing.assert_close(got[k], want[k], rtol=tol, atol=tol * float(scale),
+                                       equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_batched_osqp_on_cuda_matches_cpu_f64():
+    """BatchedOSQP on the card (one kernel launch per epoch) against the same
+    solve on the CPU (plain epoch), float64, through a cold solve and a warm
+    update: statuses and iteration counts identical, x to 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    B, n, m = 600, 12, 18
+    P, A, q, l, u = _problems(B, n, m, seed=9)
+    q2 = q + 0.01 * np.random.default_rng(10).standard_normal(q.shape)
+    runs, launched = {}, {}
+    for dev in ('cuda', 'cpu'):
+        before = tse.launches
+        s = BatchedOSQP(dtype=torch.float64, device=dev)
+        s.setup(P, q, A, l, u, eps_abs=1e-5, eps_rel=1e-5)
+        r1 = s.solve()
+        s.update(q=q2)
+        runs[dev] = (r1, s.solve())
+        launched[dev] = tse.launches - before
+    assert launched['cuda'] > 0 and launched['cpu'] == 0
+    for got, want in zip(runs['cuda'], runs['cpu']):
+        np.testing.assert_array_equal(got.info.status_val, want.info.status_val)
+        np.testing.assert_array_equal(got.info.iter, want.info.iter)
+        np.testing.assert_allclose(got.x, want.x, rtol=0, atol=1e-9)

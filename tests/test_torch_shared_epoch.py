@@ -1,0 +1,227 @@
+"""The port's fused shared epoch (osqp_tpu_torch.ops.shared_epoch) and the
+batch algebra around it, held against the JAX package on the same inputs.
+
+The plain version runs on the CPU; the CUDA kernel is checked against it on
+the card by tests/test_torch_kernels_cuda.py and chip_smoke.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from osqp_tpu._oracle.solver import OracleSettings as JaxOracleSettings
+from osqp_tpu.batch import default_core_settings as jax_default_core_settings
+from osqp_tpu import batch_shared as jbs
+from osqp_tpu.ops.shared_epoch import shared_body_pallas
+
+from osqp_tpu_torch import batch_shared as tbs
+from osqp_tpu_torch.convert import from_jax_setup
+from osqp_tpu_torch.ops import shared_epoch as tse
+from osqp_tpu_torch.settings import default_core_settings
+
+
+def _problems(B, n, m, seed=0):
+    rng = np.random.default_rng(seed)
+    Lm = rng.standard_normal((n, n)) / np.sqrt(n)
+    P = Lm @ Lm.T + 0.1 * np.eye(n)
+    A = rng.standard_normal((m, n)) / np.sqrt(n)
+    q = rng.standard_normal((B, n))
+    x0 = rng.standard_normal((B, n))
+    s0 = rng.random((B, m)) + 0.1
+    u = x0 @ A.T + s0
+    l = u - 2 * s0
+    return P, A, q, l, u
+
+
+def _jax_setup(B, n, m, seed, dtype, eps):
+    P, A, q, l, u = _problems(B, n, m, seed=seed)
+    host = JaxOracleSettings(eps_abs=eps, eps_rel=eps)
+    return jbs.shared_setup(P, A, q, l, u, host, dtype=dtype)
+
+
+def test_plain_epoch_matches_pallas_interpret():
+    """shared_epoch_plain against the Pallas kernel in interpret mode, f32,
+    for two epochs from a cold start at a ragged shape.  The JAX inputs are
+    padded as batch_shared pads them (features to 8, batch to 128) and the
+    results sliced back; the port takes the unpadded slices of the same
+    arrays.  Tolerance rtol 1e-4 / atol 1e-5, as test_fused_epoch_equivalence:
+    float32 sums run in another order in XLA and in torch."""
+    B0, n0, m0 = 33, 13, 19
+    f32 = jnp.float32
+    eps = 1e-3
+    args = _jax_setup(B0, n0, m0, 7, f32, eps)
+    P_s, A_s, Q, L_t, U_t, scal, rho0, Minv, M, rho_vec = args
+    stg = jax_default_core_settings(f32, eps_abs=eps, eps_rel=eps)
+    n, m, B = 16, 24, 128
+    pad2, pad1 = jbs._pad2, jbs._pad1
+    Pp, Ap = pad2(P_s, n, n), pad2(A_s, m, n)
+    Qp, Lp, Up = pad2(Q, n, B), pad2(L_t, m, B), pad2(U_t, m, B)
+    rvec = pad1(rho_vec, m)
+    rinv = jnp.where(rvec > 0, 1.0 / rvec, 0.0)
+    D, Dinv = pad1(scal.D, n, 1.0), pad1(scal.Dinv, n, 1.0)
+    E, Einv = pad1(scal.E, m, 1.0), pad1(scal.Einv, m, 1.0)
+    mm = jnp.matmul
+    F, c0 = jbs._build_affine(Ap, Ap.T, pad2(Minv, n, n), pad2(M, n, n), rvec, rinv,
+                              stg.sigma, stg.alpha, Qp, mm, f32)
+    CH = jnp.concatenate([Pp, Ap], axis=0)
+    codes = dict(solved=1, pinf=3, dinf=5, unsolved=11, noncvx=9)
+
+    # index maps from the padded layout back to the real rows / columns
+    rows_nm = np.r_[0:n0, n:n + m0]
+    rows_s = np.r_[0:n0, n:n + m0, n + m:n + m + m0]
+
+    def t(a):
+        return torch.tensor(np.asarray(a))
+
+    t_stg = default_core_settings(torch.float32, eps_abs=eps, eps_rel=eps)
+    c, cinv = (np.float32(np.asarray(v)) for v in (scal.c, scal.cinv))
+    sc = tse.epoch_scalars(t_stg, c, cinv, 25)
+    zeros = jnp.zeros
+    S = zeros((n + 2 * m, B), f32)
+    state = (S, zeros((n, B), f32), zeros((m, B), f32), S,
+             zeros((n, B), f32), zeros((m, B), f32), jnp.full((B,), 11, jnp.int32))
+    n_solved = 0
+    for _ in range(2):
+        got_j = shared_body_pallas(F, CH, Ap.T, rvec, rinv, D, Dinv, E, Einv, c0, Qp, Lp, Up,
+                                   *state, stg, scal.c, scal.cinv, codes, 25, interpret=True)
+        Sj, dXj, dYj, fSj, fdXj, fdYj, stj = (np.asarray(v) for v in state)
+        got_t = tse.shared_epoch_plain(
+            t(np.asarray(F)[np.ix_(rows_nm, rows_s)]),
+            t(np.asarray(CH)[np.ix_(rows_nm, np.arange(n0))]),
+            t(np.asarray(Ap.T)[:n0, :m0]),
+            t(rvec[:m0]), t(rinv[:m0]), t(D[:n0]), t(Dinv[:n0]), t(E[:m0]), t(Einv[:m0]),
+            t(np.asarray(c0)[rows_nm, :B0]), t(Q), t(L_t), t(U_t),
+            t(Sj[rows_s, :B0]), t(dXj[:n0, :B0]), t(dYj[:m0, :B0]),
+            t(fSj[rows_s, :B0]), t(fdXj[:n0, :B0]), t(fdYj[:m0, :B0]), t(stj[:B0]), sc,
+        )
+        want = [np.asarray(v) for v in got_j]
+        rows = [rows_s, slice(0, n0), slice(0, m0)] * 2  # S dX dY fS fdX fdY
+        for k, r in enumerate(rows):
+            np.testing.assert_allclose(got_t[k].numpy(), want[k][r][:, :B0], rtol=1e-4, atol=1e-5)
+        np.testing.assert_array_equal(got_t[6].numpy(), want[6][:B0])
+        for k in (7, 8):  # pri, dua
+            np.testing.assert_allclose(got_t[k].numpy(), want[k][:B0], rtol=1e-4, atol=1e-5)
+        n_solved = int((want[6][:B0] == 1).sum())
+        state = tuple(got_j[:7])
+    # the second epoch saw both converged and still-active columns
+    assert 0 < n_solved < B0
+
+
+def _random_state(args, seed):
+    rng = np.random.default_rng(seed)
+    P_s, A_s, Q, L_t, U_t = (np.asarray(v) for v in args[:5])
+    n, B = Q.shape
+    m = A_s.shape[0]
+    X = rng.standard_normal((n, B)) * 0.1
+    Z = np.clip(A_s @ X + 0.01 * rng.standard_normal((m, B)), L_t, U_t)
+    Y = rng.standard_normal((m, B)) * 0.05
+    dX = rng.standard_normal((n, B)) * 1e-6
+    dY = rng.standard_normal((m, B)) * 1e-6
+    return X, Z, Y, dX, dY
+
+
+@pytest.mark.parametrize('approximate', [False, True])
+def test_batch_check_matches_jax(approximate):
+    """_batch_check_shared against JAX's on the same scaled data and random
+    states, float64: statuses equal, values to rtol 1e-12."""
+    B, n, m = 12, 9, 13
+    f64 = jnp.float64
+    args = _jax_setup(B, n, m, 5, f64, 1e-3)
+    X, Z, Y, dX, dY = _random_state(args, 5)
+    stg = jax_default_core_settings(f64, eps_abs=1e-3, eps_rel=1e-3)
+    j = jnp.asarray
+    want = jbs._batch_check_shared(*args[:6], stg, j(X), j(Z), j(Y), j(dX), j(dY),
+                                   jnp.asarray(approximate), jnp.matmul)
+    port = from_jax_setup((*_np_arrays(args), X, Z, Y), 'cpu', torch.float64)
+    t_stg = default_core_settings(torch.float64, eps_abs=1e-3, eps_rel=1e-3)
+    tX, tZ, tY = port[10:]
+    got = tbs._batch_check_shared(*port[:6], t_stg, tX, tZ, tY,
+                                  torch.as_tensor(dX), torch.as_tensor(dY), approximate)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for gi, wi in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(gi.numpy(), np.asarray(wi), rtol=1e-12, atol=1e-12)
+
+
+def _np_arrays(args):
+    P_s, A_s, Q, L_t, U_t, scal, rho0, Minv, M, rho_vec = args
+    return (np.asarray(P_s), np.asarray(A_s), np.asarray(Q), np.asarray(L_t), np.asarray(U_t),
+            tuple(np.asarray(v) for v in scal), np.asarray(rho0),
+            np.asarray(Minv), np.asarray(M), np.asarray(rho_vec))
+
+
+def test_rho_estimate_matches_jax():
+    """_batch_rho_estimate against JAX's, float64, rtol 1e-12."""
+    rng = np.random.default_rng(7)
+    B, n, m = 11, 10, 14
+    P, A, q, l, u = _problems(B, n, m, seed=7)
+    X = rng.standard_normal((n, B))
+    Z = rng.standard_normal((m, B))
+    Y = rng.standard_normal((m, B))
+    CH = np.concatenate([P, A], axis=0)
+    j = jnp.asarray
+    want = jbs._batch_rho_estimate(j(CH), j(A.T), n, j(q.T), j(X), j(Z), j(Y),
+                                   jnp.asarray(0.37, jnp.float64), jnp.matmul)
+    t = torch.as_tensor
+    got = tbs._batch_rho_estimate(t(CH), t(A.T.copy()), n, t(q.T.copy()), t(X), t(Z), t(Y),
+                                  np.float64(0.37))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=0)
+
+
+def test_build_affine_matches_jax():
+    """The affine iteration map F and constant c0 against JAX's, float64."""
+    B, n, m = 7, 9, 13
+    args = _jax_setup(B, n, m, 3, jnp.float64, 1e-3)
+    P_s, A_s, Q, L_t, U_t, scal, rho0, Minv, M, rho_vec = args
+    stg = jax_default_core_settings(jnp.float64)
+    rinv = jnp.where(rho_vec > 0, 1.0 / rho_vec, 0.0)
+    F, c0 = jbs._build_affine(A_s, A_s.T, Minv, M, rho_vec, rinv, stg.sigma, stg.alpha,
+                              Q, jnp.matmul, jnp.float64)
+    port = from_jax_setup((*_np_arrays(args), *(np.zeros((k, B)) for k in (n, m, m))),
+                          'cpu', torch.float64)
+    tA, tQ, tMinv, tM, trv = port[1], port[2], port[7], port[8], port[9]
+    t_stg = default_core_settings(torch.float64)
+    tF, tc0 = tbs._build_affine(tA, tA.T, tMinv, tM, trv,
+                                torch.where(trv > 0, 1.0 / trv, 0.0), t_stg.sigma,
+                                t_stg.alpha, tQ)
+    np.testing.assert_allclose(tF.numpy(), np.asarray(F), rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(tc0.numpy(), np.asarray(c0), rtol=1e-12, atol=1e-14)
+
+
+def test_pick_tile():
+    """The block width: up to 32 columns, every SM busy where the batch
+    allows, and shared memory within the Hopper limit."""
+    assert tse.pick_tile(32, 48, 4096, 4, 132) == 16
+    assert tse.pick_tile(32, 48, 8192, 4, 132) == 32
+    assert tse.pick_tile(128, 192, 1024, 4, 132) == 4
+    assert tse.pick_tile(13, 19, 333, 8, 132) == 2
+    assert tse.pick_tile(13, 19, 50, 8, 132) == 1
+    for n, m, B, size in ((128, 192, 4096, 8), (128, 192, 64, 4)):
+        tb = tse.pick_tile(n, m, B, size, 132)
+        assert tse.smem_bytes(n, m, tb, size) <= tse._SMEM_LIMIT
+    with pytest.raises(ValueError, match='shared memory'):
+        tse.pick_tile(4000, 4000, 64, 8, 132)
+
+
+def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
+    """On CPU tensors the wrapper returns the plain version's result and
+    launches nothing."""
+    B, n, m = 9, 5, 7
+    args = _jax_setup(B, n, m, 2, jnp.float64, 1e-3)
+    port = from_jax_setup((*_np_arrays(args), *(np.zeros((k, B)) for k in (n, m, m))),
+                          'cpu', torch.float64)
+    P_s, A_s, Q, L, U, scal, rho0, Minv, M, rvec = port[:10]
+    stg = default_core_settings(torch.float64)
+    rinv = torch.where(rvec > 0, 1.0 / rvec, 0.0)
+    F, c0 = tbs._build_affine(A_s, A_s.T, Minv, M, rvec, rinv, stg.sigma, stg.alpha, Q)
+    S = torch.zeros((n + 2 * m, B), dtype=torch.float64)
+    inputs = (F, torch.cat([P_s, A_s]), A_s.T.contiguous(), rvec, rinv, scal.D, scal.Dinv,
+              scal.E, scal.Einv, c0, Q, L, U, S, S[:n], S[:m], S, S[:n], S[:m],
+              torch.full((B,), 11, dtype=torch.int32))
+    sc = tse.epoch_scalars(stg, scal.c, scal.cinv, 25)
+    before = tse.launches
+    got = tse.shared_epoch(*inputs, sc)
+    want = tse.shared_epoch_plain(*inputs, sc)
+    assert tse.launches == before
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
