@@ -6,19 +6,32 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit (nvidia-smi);
-2. build of every kernel from the sources in the checkout (nvcc, sm_90a);
-3. each kernel against its plain PyTorch version on the card, one epoch from
-   the same state, at the main path's shapes: f32 at B=4096, n=32, m=48
-   (the batched condensed-MPC headline), f32 at B=1024, n=128, m=192, and
-   f64 at a ragged B=333, n=13, m=19; with the kernel's, the plain version's
-   and the unfused torch epoch's times;
-4. the main path end to end: BatchedOSQP setup, cold solve, then a 10-step
-   warm MPC rollout (update(q) with q + 0.01 noise, then solve) at the
-   headline shape in f32, eps 1e-3.  Every instance must be solved, every
+2. build of every kernel from the sources in the checkout (nvcc, sm_90a),
+   one nvcc per source, all started together;
+3. K1 (shared_epoch) against its plain PyTorch version on the card, one epoch
+   from the same state, at the batched path's shapes: f32 at B=4096, n=32,
+   m=48 (the batched condensed-MPC headline), f32 at B=1024, n=128, m=192,
+   and f64 at a ragged B=333, n=13, m=19; with the kernel's, the plain
+   version's and the unfused torch epoch's times;
+4. the batched main path end to end: BatchedOSQP setup, cold solve, then a
+   10-step warm MPC rollout (update(q) with q + 0.01 noise, then solve) at
+   the headline shape in f32, eps 1e-3.  Every instance must be solved, every
    returned solution must pass its termination test recomputed on the host in
    float64, 64 instances must lie near the port's own float64 CPU optimum at
-   every step, and every kernel of the path must have launched;
-5. a JSON line with each kernel's numbers, then the result line
+   every step, and K1 must have launched; then its profile;
+5. K2 (dia_matvec) against its plain PyTorch version on the card: the sparse
+   path's own DIA operators at n = 2^20 (P with 3 bands, A and A' with 2) in
+   f32 and f64, a ragged case (m_out != n_in, more than 64 bands, offsets up
+   to +-5000) and the empty case; with the kernel's, the plain version's and
+   cuSPARSE's (torch.sparse_csr_tensor @ v) times and the byte bound;
+6. the sparse single-QP main path: osqp_tpu_torch.OSQP(sparse=True) in f32 on
+   the banded QP family of examples/huge_banded_qp.py at n = 2^20, eps 1e-3:
+   setup, a cold solve and 3 warm update(q) steps.  Both operators must be
+   DIA, every step solved, every returned solution must pass its termination
+   test recomputed on the host in float64 with scipy, and K2 must have
+   launched; then the same family at n = 16384 in f64 on the card against
+   the CPU, and a profile of one more warm step;
+7. a JSON line with each kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  It needs the repository's
@@ -29,6 +42,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -85,6 +99,31 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, name=None, flush=None):
+    """Device time of one call of ``fn``: the summed durations of the device
+    kernels and copies it runs (only those whose name holds ``name``, when
+    given), over ``reps`` calls under torch.profiler, after a warm-up.  Unlike
+    ``cuda_ms`` this leaves out the host's time between launches.  ``flush``
+    runs before each call, outside the count (an L2 flush)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+           and (name is None or name in e.key)]
+    total = sum(e.self_device_time_total for e in evs)
+    if total <= 0:
+        raise AssertionError(f'the profiler recorded no device time for {name or fn}')
+    return total / 1e3 / reps
 
 
 def epoch_inputs(B, n, m, dtype, seed):
@@ -341,6 +380,264 @@ def reference_check(run, n_check=64):
     return worst
 
 
+SPARSE_N = 1 << 20
+SPARSE_WARM = 3
+SPARSE_CHECK_N = 16384
+
+
+def banded_qp(n, seed=0):
+    """The banded QP family of examples/huge_banded_qp.py:22-27: tridiagonal
+    P, A = I + 0.5 * (shift by -2), box bounds +-1.5."""
+    import scipy.sparse as sparse
+
+    rng = np.random.default_rng(seed)
+    P = sparse.diags([np.full(n, 2.0), np.full(n - 1, -0.9), np.full(n - 1, -0.9)],
+                     [0, 1, -1]).tocsc()
+    q = rng.standard_normal(n)
+    A = (sparse.eye(n) + sparse.diags([np.full(n - 2, 0.5)], [-2], shape=(n, n))).tocsc()
+    return P, q, A, -1.5 * np.ones(n), 1.5 * np.ones(n)
+
+
+def dia_bound_ms(D, m_out, n_in, itemsize, peak_flops, peak_bytes):
+    """Least time of one DIA matvec: each band value, each entry of v and
+    each offset read once, y written once, against two flops per band and
+    row."""
+    nbytes = (D * m_out + m_out + n_in) * itemsize + 4 * D
+    t_ops, t_bytes = 2 * D * m_out / peak_flops, nbytes / peak_bytes
+    return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops > t_bytes else 'bytes')
+
+
+def _csr(S, dtype):
+    """The same matrix as a torch CSR tensor on the card (cuSPARSE SpMV)."""
+    S = S.tocsr()
+    S.sort_indices()
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter('ignore', UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(S.indptr, dtype=torch.int64, device=DEV),
+            torch.as_tensor(S.indices, dtype=torch.int64, device=DEV),
+            torch.as_tensor(S.data, dtype=dtype, device=DEV), size=S.shape,
+            check_invariants=False)
+
+
+def _ragged_dia(seed=3):
+    """m_out != n_in, about 70 bands (above the JAX package's 64-band scan
+    threshold), offsets up to +-5000, as bands and as scipy COO."""
+    import scipy.sparse as sparse
+
+    rng = np.random.default_rng(seed)
+    m_out, n_in = 200_003, 150_001
+    offs = np.unique(np.concatenate([[0, -5000, 5000], rng.integers(-5000, 5001, 69)]))
+    D = offs.size
+    bands = rng.standard_normal((D, m_out))
+    rows = np.arange(m_out)
+    cols = rows[None, :] + offs[:, None]
+    bands[(cols < 0) | (cols >= n_in)] = 0.0
+    ok = (cols >= 0) & (cols < n_in)
+    S = sparse.coo_matrix((bands[ok], (np.broadcast_to(rows, cols.shape)[ok], cols[ok])),
+                          shape=(m_out, n_in))
+    return bands, tuple(int(o) for o in offs), S
+
+
+def dia_phase(card):
+    """K2 against its plain version on the card.  Returns one row per case."""
+    from osqp_tpu_torch.ops import dia_matvec as dm
+    from osqp_tpu_torch.ops import spmv
+    from osqp_tpu_torch.utils.scaling_host import ruiz_scale_scipy
+
+    f32_peak, f64_peak, mem_peak = peaks(card)
+    P, q, A, l, u = banded_qp(SPARSE_N, seed=0)
+    P_s, A_s, *_ = ruiz_scale_scipy(P, A, q, l, u, 10)
+    rng = np.random.default_rng(7)
+    v_host = rng.standard_normal(SPARSE_N)
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        Pd = spmv.dia_from_scipy(P_s, dtype, DEV)
+        Ad = spmv.dia_from_scipy(A_s, dtype, DEV)
+        v = torch.as_tensor(v_host, dtype=dtype, device=DEV)
+        cases += [('P @ v', Pd, P_s, v), ('A @ v', Ad, A_s, v), ("A' @ y", Ad.T, A_s.T, v)]
+    bands, offs, S = _ragged_dia()
+    vr = torch.as_tensor(rng.standard_normal(S.shape[1]), device=DEV)
+    Sr = spmv.DiaMatrix(torch.as_tensor(bands, device=DEV), offs,
+                        torch.zeros((0, S.shape[1]), dtype=torch.float64, device=DEV), (),
+                        S.shape)
+    cases.append(('ragged', Sr, S, vr))
+
+    # writing 64 MB evicts the 50 MB L2 between timed calls for the cold
+    # figure; the main path calls the kernel with its operands mostly in L2
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+
+    # tolerances: the kernel rounds each product and each sum on its own, in
+    # offset order, as the plain version's separate multiply and add kernels
+    # do, so the two should agree bit for bit; the bound of a few ulps of the
+    # row scale only admits FMA contraction or another summation order
+    rows = []
+    for label, M, S_host, v in cases:
+        dtype = v.dtype
+        offs_t = M._off
+        got = dm.dia_matvec(M.bands, offs_t, v)
+        torch.cuda.synchronize()
+        want = dm.dia_matvec_plain(M.bands, M.offsets, v)
+        err = float((got - want).abs().max())
+        eps = torch.finfo(dtype).eps
+        tol = 4 * eps * max(1.0, float(want.abs().max())) * max(1, len(M.offsets))
+        if not (err <= tol):
+            raise AssertionError(f'dia_matvec {label} {dtype}: max abs error {err} > {tol}')
+        reps = 50
+        kern = lambda: dm.dia_matvec(M.bands, offs_t, v)  # noqa: E731
+        ms = device_ms(kern, reps, name='dia_matvec_kernel')
+        cold_ms = device_ms(kern, 20, name='dia_matvec_kernel', flush=flush.zero_)
+        events_ms = cuda_ms(kern, reps)
+        plain_ms = device_ms(lambda: dm.dia_matvec_plain(M.bands, M.offsets, v), reps)
+        csr = _csr(S_host, dtype)
+        lib = csr @ v
+        lib_err = float((lib - want).abs().max())
+        lib_ms = device_ms(lambda: csr @ v, reps)
+        item = torch.empty((), dtype=dtype).element_size()
+        D, m_out = M.bands.shape
+        bound, by = dia_bound_ms(D, m_out, v.shape[0], item,
+                                 f32_peak if dtype == torch.float32 else f64_peak, mem_peak)
+        row = dict(case=label, dtype=str(dtype).replace('torch.', ''), D=D, m_out=m_out,
+                   n_in=v.shape[0], max_abs_err=err, tol=tol, cusparse_abs_diff=lib_err,
+                   ms=ms, cold_l2_ms=cold_ms, back_to_back_events_ms=events_ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                   bound_share=bound / ms, bound_share_cold_l2=bound / cold_ms)
+        print('dia_matvec vs plain:', json.dumps(row), flush=True)
+        rows.append(row)
+
+    # D = 0 (an LP's empty P): zeros, no launch
+    before = dm.launches
+    z = dm.dia_matvec(torch.zeros((0, 1000), device=DEV), torch.zeros((0,), dtype=torch.int32,
+                                                                         device=DEV),
+                      torch.ones(1000, device=DEV))
+    if dm.launches != before or z.shape != (1000,) or bool(z.any()):
+        raise AssertionError('dia_matvec with D = 0 must return zeros without a launch')
+    print('dia_matvec D = 0: zeros, no launch', flush=True)
+    return rows
+
+
+def sparse_residual_check(P, A, l, u, q, x, y, eps):
+    """The termination test of a returned solution, recomputed on the host in
+    float64 with scipy (the rule of residual_check): ||Ax - proj(Ax)|| <=
+    eps (1 + max(||Ax||, ||proj(Ax)||)) and ||Px + q + A'y|| <= eps (1 +
+    max(||Px||, ||A'y||, ||q||)) in the inf-norm, with 5% and 1e-4 of slack.
+    Every row of Ax, Px and A'y sums at most three terms of O(1) values, so
+    the float32 rounding of the returned x and y moves a row's residual by a
+    few 1e-7, far inside the slack, whatever n.  Returns the largest ratio of
+    residual to bound."""
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    Ax = A @ x
+    proj = np.clip(Ax, l, u)
+    Px, Aty = P @ x, A.T @ y
+    pri = np.abs(Ax - proj).max()
+    dua = np.abs(Px + q + Aty).max()
+    eps_pri = eps + eps * max(np.abs(Ax).max(), np.abs(proj).max())
+    eps_dua = eps + eps * max(np.abs(Px).max(), np.abs(Aty).max(), np.abs(q).max())
+    if pri > 1.05 * eps_pri + 1e-4 or dua > 1.05 * eps_dua + 1e-4:
+        raise AssertionError(f'a returned solution fails its termination test: '
+                             f'pri {pri} vs {eps_pri}, dua {dua} vs {eps_dua}')
+    return max(pri / eps_pri, dua / eps_dua)
+
+
+def sparse_main_path(dtype=torch.float32):
+    """osqp_tpu_torch.OSQP in sparse mode on the card at n = 2^20: setup, a
+    cold solve and SPARSE_WARM warm update(q) steps.  Returns the run."""
+    from osqp_tpu_torch import OSQP
+
+    P, q, A, l, u = banded_qp(SPARSE_N, seed=0)
+    kw = dict(eps_abs=EPS, eps_rel=EPS, polishing=False, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = OSQP(dtype=dtype, device=DEV, sparse=True)
+    s.setup(P=P, q=q, A=A, l=l, u=u, **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    qs, results, times = [q], [], []
+    for k in range(SPARSE_WARM + 1):
+        if k:
+            qs.append(q * 1.01 ** k)
+        t0 = time.perf_counter()
+        if k:
+            s.update(q=qs[k])
+        results.append(s.solve(raise_error=False))
+        times.append(time.perf_counter() - t0)
+    return dict(solver=s, P=P, A=A, l=l, u=u, qs=qs, results=results, setup_s=setup_s,
+                times=times, dtype=dtype)
+
+
+def sparse_checks(run):
+    s = run['solver']._solver
+    fmts = (s._sparse_fmt_P, s._sparse_fmt_A)
+    if fmts != ('dia', 'dia'):
+        raise AssertionError(f'operators are {fmts}, not DIA')
+    statuses = [r.info.status for r in run['results']]
+    if any(st != 'solved' for st in statuses):
+        raise AssertionError(f'sparse main path statuses {statuses}')
+    return max(sparse_residual_check(run['P'], run['A'], run['l'], run['u'], qk, r.x, r.y, EPS)
+               for qk, r in zip(run['qs'], run['results']))
+
+
+def sparse_card_vs_cpu():
+    """The banded family at n = 16384, float64: the port on the card against
+    the port on the CPU, a cold solve and one warm step.  Statuses equal and
+    x within 1e-6; iteration counts printed side by side."""
+    from osqp_tpu_torch import OSQP
+
+    P, q, A, l, u = banded_qp(SPARSE_CHECK_N, seed=1)
+    kw = dict(eps_abs=1e-5, eps_rel=1e-5, polishing=False, verbose=False)
+    out = {}
+    for dev in (DEV, 'cpu'):
+        s = OSQP(dtype=torch.float64, device=dev, sparse=True)
+        s.setup(P=P, q=q, A=A, l=l, u=u, **kw)
+        r1 = s.solve(raise_error=False)
+        s.update(q=1.01 * q)
+        out[dev] = (r1, s.solve(raise_error=False))
+    rows = []
+    for k, (g, w) in enumerate(zip(out[DEV], out['cpu'])):
+        if g.info.status != w.info.status:
+            raise AssertionError(f'step {k}: card {g.info.status} vs cpu {w.info.status}')
+        dx = float(np.abs(g.x - w.x).max())
+        if dx > 1e-6:
+            raise AssertionError(f'step {k}: x differs by {dx} > 1e-6 between card and cpu')
+        rows.append(dict(step=k, status=g.info.status, iter_card=g.info.iter,
+                         iter_cpu=w.info.iter, cg_card=g.info.cg_iters,
+                         cg_cpu=w.info.cg_iters, x_diff=dx))
+    return rows
+
+
+def profile_sparse(run):
+    """One more warm step of the sparse path under torch.profiler: wall
+    time, device busy time and idle share, the DIA kernel's time and
+    launches, the heaviest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s, q = run['solver'], run['qs'][0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.update(q=q * 1.01 ** (SPARSE_WARM + 1))
+        r = s.solve(raise_error=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        raise AssertionError('the profiler recorded no device time')
+    dia = [e for e in kernels if 'dia_matvec_kernel' in e.key]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(
+        status=r.info.status, iters=r.info.iter, cg_iters=r.info.cg_iters,
+        host_syncs=r.info.host_syncs, wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+        device_idle_share=1 - busy_us / 1e3 / wall_ms,
+        dia_matvec_ms=sum(e.self_device_time_total for e in dia) / 1e3,
+        dia_matvec_launches=sum(e.count for e in dia),
+        kernel_launches_all=sum(e.count for e in kernels),
+        top_kernels=[(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top],
+    )
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device (torch.cuda.is_available() is False)', file=sys.stderr)
@@ -350,6 +647,7 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT))
     from osqp_tpu_torch.ops import _build
+    from osqp_tpu_torch.ops import dia_matvec as dm
     from osqp_tpu_torch.ops import shared_epoch as se
 
     # 1. the card
@@ -360,21 +658,22 @@ def main():
     print(f'python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}')
     print(card_line, flush=True)
 
-    # 2. build every kernel from the checkout's sources
+    # 2. build every kernel from the checkout's sources, in parallel
     t0 = time.perf_counter()
-    lib = _build.build('shared_epoch')
-    print(f'built {lib.name} in {time.perf_counter() - t0:.2f} s')
-    print(lib.with_suffix('.log').read_text().strip(), flush=True)
+    libs = _build.build_all(['shared_epoch', 'dia_matvec'])
+    print(f'built {", ".join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s')
+    for lib in libs:
+        print(lib.with_suffix('.log').read_text().strip(), flush=True)
 
-    # 3. each kernel against its plain version
+    # 3. K1 against its plain version
     rows = kernel_phase(kind)
 
-    # 4. the main path, with the launch counts read around it
-    se.launches = 0
+    # 4. the batched main path, with the launch counts read around it
+    se.launches = dm.launches = 0
     run = main_path()
     launches = se.launches
     if launches <= 0:
-        raise AssertionError('the main path never launched the shared_epoch kernel')
+        raise AssertionError('the batched main path never launched the shared_epoch kernel')
     statuses = np.stack([r.info.status_val for r in run['results']])
     if not (statuses == 1).all():
         raise AssertionError(f'{int((statuses != 1).sum())} instance-solves not solved')
@@ -393,7 +692,33 @@ def main():
     print('main path:', json.dumps(summary), flush=True)
     print('warm rollout profile:', json.dumps(profile_rollout(run)), flush=True)
 
+    # 5. K2 against its plain version
+    dia_rows = dia_phase(kind)
+
+    # 6. the sparse single-QP main path, with the launch counts read around it
+    se.launches = dm.launches = 0
+    sp_run = sparse_main_path(torch.float32)
+    dia_launches = dm.launches
+    if dia_launches <= 0:
+        raise AssertionError('the sparse main path never launched the dia_matvec kernel')
+    sp_ratio = sparse_checks(sp_run)
+    sp_res = sp_run['results']
+    sp_summary = dict(
+        n=SPARSE_N, m=SPARSE_N, eps=EPS, dtype='float32',
+        formats=[sp_run['solver']._solver._sparse_fmt_P, sp_run['solver']._solver._sparse_fmt_A],
+        setup_s=sp_run['setup_s'], cold_solve_s=sp_run['times'][0],
+        warm_solve_s=sp_run['times'][1:], statuses=[r.info.status for r in sp_res],
+        admm_iters=[r.info.iter for r in sp_res], cg_steps=[r.info.cg_iters for r in sp_res],
+        host_syncs=[r.info.host_syncs for r in sp_res], rho_updates=[r.info.rho_updates for r in sp_res],
+        dia_launches=dia_launches, residual_over_bound=sp_ratio,
+    )
+    print('sparse main path:', json.dumps(sp_summary), flush=True)
+    print('sparse card vs cpu (n=16384, f64):', json.dumps(sparse_card_vs_cpu()), flush=True)
+    print('sparse warm step profile:', json.dumps(profile_sparse(sp_run)), flush=True)
+
+    # 7. the kernels line and the result line
     head = rows[0]
+    dia_head = dia_rows[0]  # P @ v, float32, n = 2^20: the sparse path's widest operator
     kernels = [dict(
         name='shared_epoch', route='cuda', source='osqp_tpu_torch/ops/csrc/shared_epoch.cu',
         replaces='osqp_tpu/ops/shared_epoch.py:75', launches=launches,
@@ -401,6 +726,13 @@ def main():
         ms=head['ms'], kernel_ms=head['ms'], plain_ms=head['plain_ms'],
         bound_ms=head['bound_ms'], bound_by=head['bound_by'], library_ms=head['library_ms'],
         shape=f"B={head['B']} n={head['n']} m={head['m']} {head['dtype']}",
+    ), dict(
+        name='dia_matvec', route='cuda', source='osqp_tpu_torch/ops/csrc/dia_matvec.cu',
+        replaces='tools/proto_dia_pallas.py:25', plain_of='osqp_tpu/ops/spmv.py:79',
+        launches=dia_launches, max_abs_err=max(r['max_abs_err'] for r in dia_rows),
+        ms=dia_head['ms'], plain_ms=dia_head['plain_ms'], bound_ms=dia_head['bound_ms'],
+        bound_by=dia_head['bound_by'], library_ms=dia_head['library_ms'],
+        shape=f"{dia_head['case']} D={dia_head['D']} m={dia_head['m_out']} {dia_head['dtype']}",
     )]
     print(card_line)
     print(json.dumps({'kernels': kernels}))

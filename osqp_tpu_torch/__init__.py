@@ -2,8 +2,10 @@
 
 The port of ``osqp_tpu`` to torch tensors on an NVIDIA Hopper GPU.  It imports
 nothing of JAX or of ``osqp_tpu``.  Entry points run on CUDA unless the caller
-passes ``device='cpu'``.  So far it holds the shared-structure batched engine
-(``BatchedOSQP``), whose epoch runs as one hand-written CUDA kernel.
+passes ``device='cpu'``.  It holds the shared-structure batched engine
+(``BatchedOSQP``), whose epoch runs as one hand-written CUDA kernel, and the
+single-QP front end (``OSQP``), whose sparse mode runs PCG on DIA operators
+with a hand-written CUDA matvec.
 """
 
 import torch as _torch
@@ -17,3 +19,4 @@ _torch.set_float32_matmul_precision('highest')
 
 from .batch import BatchedOSQP  # noqa: E402,F401
 from .constants import SolverStatus, status_string  # noqa: E402,F401
+from .interface import OSQP  # noqa: E402,F401

@@ -1,0 +1,419 @@
+"""The single-QP solver handle on torch tensors.
+
+Counterpart of ``osqp_tpu/backends/jax_backend.py::Solver``: host-side setup,
+updates and bookkeeping around ``osqp_tpu_torch.solver.core.solve_scaled``,
+with the reference binding's surface (``setup / solve / warm_start /
+update_data_vec / update_data_mat / update_settings / update_rho``).
+
+Two modes, chosen at setup as the JAX package chooses them:
+
+- dense: P and A as dense tensors, Ruiz on the device, the convexity check;
+  direct mode factors ``M = P + sigma I + A' diag(rho) A`` by Cholesky,
+  indirect mode runs PCG on dense matvecs;
+- sparse (``sparse=True``, or ``'auto'`` above 25M dense entries): Ruiz on the
+  host in scipy, P and A as DIA operators (``ops.spmv``) whose matvecs are the
+  hand-written CUDA kernel on the card, and always the indirect (PCG) solver.
+
+The JAX package's environment knobs are arguments: ``sparse``
+(``OSQP_TPU_SPARSE``), ``sparse_format`` (``OSQP_TPU_SPARSE_FORMAT``) and
+``dense_budget_bytes`` (``OSQP_TPU_DENSE_SPMV_BYTES``).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from .constants import (
+    CapabilitiesType,
+    LinsysSolverType,
+    OSQP_INFTY,
+    SolverError,
+    SolverStatus,
+    status_string,
+)
+from .device import resolve_device
+from .exceptions import OSQPException
+from .ops import spmv
+from .settings import Info, OracleSettings, Solution, core_settings, np_dtype
+from .solver import core
+from .utils.scaling_host import ruiz_scale_scipy
+
+SPARSE_AUTO_ENTRIES = 25_000_000
+
+_LATER = {
+    'polishing': 'polishing (and its line-search fallback) is not ported yet (ROADMAP.md '
+                 'Queue 1: polish and the line-search fallback); pass polishing=False',
+    'time_limit': 'time_limit is not ported yet (ROADMAP.md Queue 1: time_limit and SIGINT); '
+                  'pass time_limit=0',
+    'verbose': 'verbose printing is not ported yet (ROADMAP.md Queue 1: verbose printing); '
+               'pass verbose=False',
+}
+
+
+def capabilities() -> int:
+    return (CapabilitiesType.OSQP_CAPABILITY_DIRECT_SOLVER
+            | CapabilitiesType.OSQP_CAPABILITY_INDIRECT_SOLVER
+            | CapabilitiesType.OSQP_CAPABILITY_UPDATE_MATRICES)
+
+
+def _check_ported(stg) -> None:
+    if stg.polishing:
+        raise NotImplementedError(_LATER['polishing'])
+    if float(stg.time_limit or 0.0) > 0.0:
+        raise NotImplementedError(_LATER['time_limit'])
+    if stg.verbose:
+        raise NotImplementedError(_LATER['verbose'])
+
+
+def _invalid():
+    return OSQPException(int(SolverError.OSQP_DATA_VALIDATION_ERROR))
+
+
+def _scale_csc(S, rowscale, colscale, mult=1.0):
+    """rowscale[i] * S[i, j] * colscale[j] * mult, keeping the exact stored
+    pattern (scipy's diags @ S @ diags would prune explicit zeros and change
+    the pinned DIA offsets across updates)."""
+    S = S.tocsc(copy=True)
+    cols = np.repeat(np.arange(S.shape[1]), np.diff(S.indptr))
+    S.data = S.data * rowscale[S.indices] * colscale[cols] * mult
+    return S
+
+
+class Solver:
+    """Single-QP solver handle: host state plus device tensors."""
+
+    def __init__(self, dtype=torch.float64, device=None, sparse='auto',
+                 sparse_format='auto', dense_budget_bytes=spmv.DENSE_BUDGET_BYTES):
+        if sparse not in ('auto', True, False):
+            raise ValueError(f"sparse must be 'auto', True or False, got {sparse!r}")
+        if str(sparse_format).lower() not in spmv.FORMATS:
+            raise ValueError(f'sparse_format must be one of {spmv.FORMATS}, got {sparse_format!r}')
+        np_dtype(dtype)
+        self._dtype = dtype
+        self._device = resolve_device(device)
+        self._sparse_opt = sparse
+        self._sparse_format = sparse_format
+        self._dense_budget = int(dense_budget_bytes)
+        self._is_sparse = False
+
+    # -- helpers -----------------------------------------------------------
+
+    @property
+    def _indirect(self) -> bool:
+        return self._stg.linsys_solver == int(LinsysSolverType.OSQP_INDIRECT_SOLVER)
+
+    def _f(self):
+        return np_dtype(self._dtype)
+
+    def _t(self, a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=self._dtype, device=self._device)
+
+    def _check_convexity(self):
+        """Direct mode: the scaled KKT matrix has valid inertia iff
+        P_scaled + sigma I is positive definite."""
+        if self._indirect:
+            return
+        P = self._data.P
+        n = P.shape[0]
+        eye = torch.eye(n, dtype=P.dtype, device=P.device)
+        _, info = torch.linalg.cholesky_ex(P + self._f()(self._stg.sigma) * eye)
+        if int(info) != 0:
+            raise OSQPException(int(SolverError.OSQP_NONCVX_ERROR))
+
+    def _refactorize(self):
+        sigma = self._f()(self._stg.sigma)
+        if self._indirect:
+            diag = core.build_M_diag(self._data.P, self._data.A, sigma, self._rho.rho_vec)
+            self._factor = core.Factor(L=None, diag=diag, Minv=None)
+        else:
+            if self._is_sparse:
+                raise ValueError('sparse mode solves by PCG only (linsys_solver indirect)')
+            self._factor = core.factorize(self._data.P, self._data.A, sigma, self._rho.rho_vec)
+
+    def _zero_iterates(self):
+        z = torch.zeros
+        kw = dict(dtype=self._dtype, device=self._device)
+        self._iterates = core.Iterates(x=z((self.n,), **kw), z=z((self.m,), **kw),
+                                       y=z((self.m,), **kw))
+
+    # -- low-level API -----------------------------------------------------
+
+    def setup(self, P, q, A, l, u, **settings):
+        t0 = time.perf_counter()
+        self._stg = OracleSettings(**settings)
+        _check_ported(self._stg)
+        dt = self._dtype
+        f = self._f()
+
+        P = sp.csc_matrix(P).astype(np.float64)
+        A = sp.csc_matrix(A).astype(np.float64)
+        n, m = P.shape[0], A.shape[0]
+        q = np.asarray(q, np.float64).ravel()
+        l = np.full(m, -OSQP_INFTY) if l is None else np.asarray(l, np.float64).ravel()
+        u = np.full(m, OSQP_INFTY) if u is None else np.asarray(u, np.float64).ravel()
+        l = np.maximum(l, -OSQP_INFTY)
+        u = np.minimum(u, OSQP_INFTY)
+        if np.any(l > u):
+            raise _invalid()
+
+        P_triu = sp.triu(P, format='csc')
+        P_full = (P_triu + P_triu.T - sp.diags(P_triu.diagonal())).tocsc()
+        self.n, self.m = n, m
+        self._P_triu_pattern = P_triu  # CSC pattern for update_data_mat
+        self._A_pattern = A.copy()
+        self._l_orig = l.copy()
+        self._u_orig = u.copy()
+
+        self._is_sparse = self._sparse_opt is True or (
+            self._sparse_opt == 'auto' and n * n + m * n > SPARSE_AUTO_ENTRIES)
+        if self._is_sparse:
+            # the sparse path is CG-only: a dense factorization would not fit
+            self._stg.linsys_solver = int(LinsysSolverType.OSQP_INDIRECT_SOLVER)
+            if int(self._stg.scaling) > 0:
+                P_s, A_s, q_s, l_s, u_s, D, E, c = ruiz_scale_scipy(
+                    P_full, A, q, l, u, int(self._stg.scaling))
+            else:
+                P_s, A_s, q_s, l_s, u_s = P_full, A, q, l, u
+                D, E, c = np.ones(n), np.ones(m), 1.0
+            # pick each operator's format from its pattern and pin it, so
+            # value updates rebuild the same structure
+            fmt = dict(sparse_format=self._sparse_format, dense_budget_bytes=self._dense_budget)
+            self._sparse_fmt_P = spmv.choose_format(P_s, **fmt)
+            self._sparse_fmt_A = spmv.choose_format(A_s, **fmt)
+            self._data = core.QPData(
+                P=spmv.from_scipy(P_s, dt, self._sparse_fmt_P, self._device),
+                q=self._t(q_s),
+                A=spmv.from_scipy(A_s, dt, self._sparse_fmt_A, self._device),
+                l=self._t(l_s),
+                u=self._t(u_s),
+            )
+            self._scal = core.Scaling(
+                D=self._t(D), Dinv=self._t(1.0 / D), E=self._t(E),
+                Einv=self._t(1.0 / E if m else E), c=f(c), cinv=f(1.0 / c))
+        else:
+            Pj = self._t(P_full.toarray())
+            Aj = self._t(A.toarray() if m else np.zeros((m, n)))
+            qj, lj, uj = self._t(q), self._t(l), self._t(u)
+            if int(self._stg.scaling) > 0:
+                self._data, self._scal = core.ruiz_scale(Pj, qj, Aj, lj, uj,
+                                                         int(self._stg.scaling))
+            else:
+                self._data = core.QPData(P=Pj, q=qj, A=Aj, l=lj, u=uj)
+                self._scal = core.identity_scaling(n, m, dt, self._device)
+            self._check_convexity()
+
+        self._rho = core.make_rho_state(self._data.l, self._data.u, self._stg.rho,
+                                        bool(self._stg.rho_is_vec))
+        self._refactorize()
+        self._zero_iterates()
+        self._info = Info()
+        self._solution = Solution()
+        self._first_run = True
+        self._clear_update_time = False
+        self._info.setup_time = time.perf_counter() - t0
+        self._info.rho_estimate = self._stg.rho
+
+    def solve(self):
+        stg = self._stg
+        info = self._info
+        _check_ported(stg)
+        t0 = time.perf_counter()
+        if self._clear_update_time:
+            info.update_time = 0.0
+        if not stg.warm_starting:
+            self._zero_iterates()
+
+        res = core.solve_scaled(self._data, self._scal, core_settings(stg, self._dtype),
+                                self._rho, self._factor, self._iterates,
+                                indirect=self._indirect)
+        self._iterates = res.iterates
+        self._rho = res.rho
+        self._factor = res.factor
+
+        x_out = res.x.cpu().numpy().astype(np.float64)
+        y_out = res.y.cpu().numpy().astype(np.float64)
+        info.iter = int(res.iters)
+        info.obj_val = float(res.obj_val)
+        info.dual_obj_val = float(res.dual_obj_val)
+        info.duality_gap = float(res.duality_gap)
+        info.prim_res = float(res.pri_res)
+        info.dual_res = float(res.dua_res)
+        info.rho_estimate = float(res.rho_estimate)
+        info.rho_updates = int(res.rho_updates)
+        info.status_val = int(res.status)
+        info.status = status_string(res.status)
+        info.cg_iters = int(res.cg_iters)
+        info.host_syncs = int(res.host_syncs)
+        self._stg.rho = float(res.rho.rho)
+        info.solve_time = time.perf_counter() - t0
+        info.rel_kkt_error = float(res.rel_kkt_error)
+        # the core accumulates the iteration integral of min(1, rel_kkt);
+        # the mean iteration time turns it into the time integral
+        info.primdual_int = float(res.primdual_acc) * info.solve_time / max(int(res.iters), 1)
+        info.status_polish = 0
+        info.polish_time = 0.0
+
+        if self._first_run:
+            info.run_time = info.setup_time + info.solve_time + info.polish_time
+        else:
+            info.run_time = info.update_time + info.solve_time + info.polish_time
+        self._first_run = False
+        self._clear_update_time = True
+
+        sol = self._solution
+        sol.x = x_out
+        sol.y = y_out
+        sol.prim_inf_cert = res.prim_inf_cert.cpu().numpy().astype(np.float64)
+        sol.dual_inf_cert = res.dual_inf_cert.cpu().numpy().astype(np.float64)
+        sol.linesearch = None
+        return sol, info
+
+    # -- warm start / updates ----------------------------------------------
+
+    def warm_start(self, x=None, y=None):
+        self._stg.warm_starting = True
+        it = self._iterates
+        if x is not None:
+            x = np.asarray(x, np.float64).ravel()
+            if x.shape != (self.n,):
+                raise _invalid()
+            xs = self._scal.Dinv * self._t(x)
+            zs = self._data.A @ xs if self.m else it.z.new_zeros((0,))
+            it = it._replace(x=xs, z=zs)
+        if y is not None:
+            y = np.asarray(y, np.float64).ravel()
+            if y.shape != (self.m,):
+                raise _invalid()
+            it = it._replace(y=self._scal.c * (self._scal.Einv * self._t(y)))
+        self._iterates = it
+
+    def _begin_update(self):
+        if self._clear_update_time:
+            self._clear_update_time = False
+            self._info.update_time = 0.0
+        return time.perf_counter()
+
+    def update_data_vec(self, q=None, l=None, u=None):
+        t0 = self._begin_update()
+        data = self._data
+        if q is not None:
+            q = np.asarray(q, np.float64).ravel()
+            if q.shape != (self.n,):
+                raise _invalid()
+            data = data._replace(q=self._scal.c * (self._scal.D * self._t(q)))
+        bounds_changed = False
+        if l is not None:
+            l = np.maximum(np.asarray(l, np.float64).ravel(), -OSQP_INFTY)
+            if l.shape != (self.m,):
+                raise _invalid()
+            self._l_orig = l.copy()
+            data = data._replace(l=self._scal.E * self._t(l))
+            bounds_changed = True
+        if u is not None:
+            u = np.minimum(np.asarray(u, np.float64).ravel(), OSQP_INFTY)
+            if u.shape != (self.m,):
+                raise _invalid()
+            self._u_orig = u.copy()
+            data = data._replace(u=self._scal.E * self._t(u))
+            bounds_changed = True
+        self._data = data
+        if bounds_changed:
+            if np.any(self._l_orig > self._u_orig):
+                raise _invalid()
+            # re-type the constraints; refactor only on a type change
+            # (ref _osqp.py:526-562)
+            new_types = core.constraint_types(self._data.l, self._data.u)
+            changed = bool(torch.any(new_types != self._rho.constr_type))
+            rho = core.clip_rho(self._stg.rho, self._dtype)
+            vec = core.rho_vec_from_types(new_types, rho, bool(self._stg.rho_is_vec), self._dtype)
+            self._rho = core.RhoState(rho=rho, rho_vec=vec,
+                                      rho_inv_vec=torch.where(vec > 0, 1.0 / vec, 0.0),
+                                      constr_type=new_types)
+            if changed:
+                self._refactorize()
+        info = self._info
+        info.status_val = int(SolverStatus.OSQP_UNSOLVED)
+        info.status = status_string(info.status_val)
+        info.rho_updates = 0
+        info.solve_time = 0.0
+        info.polish_time = 0.0
+        info.update_time += time.perf_counter() - t0
+
+    def update_data_mat(self, P_x=None, P_i=None, A_x=None, A_i=None):
+        t0 = self._begin_update()
+        dt = self._dtype
+        D = self._scal.D.cpu().numpy().astype(np.float64)
+        if P_x is not None:
+            P_triu = self._P_triu_pattern.copy()
+            data = P_triu.data.copy()
+            if P_i is None:
+                if len(P_x) != len(data):
+                    raise _invalid()
+                data[:] = P_x
+            else:
+                data[np.asarray(P_i, np.int64)] = P_x
+            P_triu = sp.csc_matrix((data, P_triu.indices, P_triu.indptr), shape=P_triu.shape)
+            self._P_triu_pattern = P_triu
+            P_full = (P_triu + P_triu.T - sp.diags(P_triu.diagonal())).tocsc()
+            if self._is_sparse:
+                P_new = spmv.from_scipy(_scale_csc(P_full, D, D, float(self._scal.c)), dt,
+                                        self._sparse_fmt_P, self._device)
+            else:
+                Pj = self._t(P_full.toarray())
+                P_new = self._scal.c * (self._scal.D[:, None] * Pj * self._scal.D[None, :])
+            self._data = self._data._replace(P=P_new)
+        if A_x is not None:
+            A = self._A_pattern.copy()
+            data = A.data.copy()
+            if A_i is None:
+                if len(A_x) != len(data):
+                    raise _invalid()
+                data[:] = A_x
+            else:
+                data[np.asarray(A_i, np.int64)] = A_x
+            A = sp.csc_matrix((data, A.indices, A.indptr), shape=A.shape)
+            self._A_pattern = A
+            if self._is_sparse:
+                E = self._scal.E.cpu().numpy().astype(np.float64)
+                A_new = spmv.from_scipy(_scale_csc(A, E, D), dt, self._sparse_fmt_A,
+                                        self._device)
+            else:
+                Aj = self._t(A.toarray())
+                A_new = self._scal.E[:, None] * Aj * self._scal.D[None, :]
+            self._data = self._data._replace(A=A_new)
+        if P_x is not None and not self._is_sparse:
+            self._check_convexity()
+        self._refactorize()
+        info = self._info
+        info.status_val = int(SolverStatus.OSQP_UNSOLVED)
+        info.status = status_string(info.status_val)
+        info.update_time += time.perf_counter() - t0
+
+    def update_rho(self, rho_new):
+        if rho_new <= 0:
+            raise ValueError('rho must be positive')
+        self._stg.rho = float(core.clip_rho(rho_new, torch.float64))
+        rho = core.clip_rho(self._stg.rho, self._dtype)
+        vec = core.rho_vec_from_types(self._rho.constr_type, rho, bool(self._stg.rho_is_vec),
+                                      self._dtype)
+        self._rho = self._rho._replace(rho=rho, rho_vec=vec,
+                                       rho_inv_vec=torch.where(vec > 0, 1.0 / vec, 0.0))
+        self._refactorize()
+
+    def update_settings(self, **kwargs):
+        refactor_needed = False
+        for k, v in kwargs.items():
+            if not hasattr(self._stg, k):
+                raise ValueError(f'Unrecognized setting {k}')
+        trial = OracleSettings(**{**vars(self._stg), **kwargs})
+        _check_ported(trial)
+        for k, v in kwargs.items():
+            if k in ('linsys_solver', 'sigma') and getattr(self._stg, k) != v:
+                refactor_needed = True
+            setattr(self._stg, k, v)
+        if refactor_needed:
+            self._refactorize()

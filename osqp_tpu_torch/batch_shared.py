@@ -375,7 +375,7 @@ def shared_solve(P, A, Q, L_b, U_b, scal: Scaling, settings: CoreSettings,
             if not (rho_new > tolr * st.rho or rho_new < st.rho / tolr):
                 continue
             vec = core.rho_vec_from_types(types0, rho_new, settings.rho_is_vec, dtype)
-            fac = core.factorize_inv(P, A, sigma, vec)
+            fac = core.factorize(P, A, sigma, vec, 'inv')
             rinv = torch.where(vec > 0, 1.0 / vec, 0.0)
             F_new, c0_new = _build_affine(A, At, fac.Minv, fac.L, vec, rinv, sigma, alpha, Qc)
             st = replace(
@@ -530,7 +530,7 @@ def shared_setup(P, A, q_b, l_b, u_b, settings_host: OracleSettings,
                                   (scal.E * t64(u_b[0])).to(dtype))
     rho0 = f(min(max(settings_host.rho, 1e-6), 1e6))
     rho_vec = core.rho_vec_from_types(types, rho0, bool(settings_host.rho_is_vec), dtype)
-    fac = core.factorize_inv(P_s, A_s, f(settings_host.sigma), rho_vec)
+    fac = core.factorize(P_s, A_s, f(settings_host.sigma), rho_vec, 'inv')
 
     D = scal.D.cpu().numpy()
     E = scal.E.cpu().numpy()

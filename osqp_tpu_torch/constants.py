@@ -6,6 +6,7 @@ Numeric status values follow the OSQP v1.0 C enum (sequential, starting at
 
 from __future__ import annotations
 
+import math
 from enum import IntEnum
 
 # Algorithm parameter bounds (OSQP reference purepy _osqp.py:24-45)
@@ -18,6 +19,7 @@ MIN_SCALING = 1e-04
 MAX_SCALING = 1e04
 
 OSQP_INFTY = 1e30
+OSQP_NAN = math.nan
 
 # Adaptive-rho interval used when ``adaptive_rho_interval == 0`` (a fixed
 # interval keeps solves deterministic).
@@ -36,6 +38,38 @@ class SolverStatus(IntEnum):
     OSQP_NON_CVX = 9
     OSQP_SIGINT = 10
     OSQP_UNSOLVED = 11
+
+
+class SolverError(IntEnum):
+    OSQP_NO_ERROR = 0
+    OSQP_DATA_VALIDATION_ERROR = 1
+    OSQP_SETTINGS_VALIDATION_ERROR = 2
+    OSQP_LINSYS_SOLVER_INIT_ERROR = 3
+    OSQP_NONCVX_ERROR = 4
+    OSQP_MEM_ALLOC_ERROR = 5
+    OSQP_WORKSPACE_NOT_INIT_ERROR = 6
+    OSQP_ALGEBRA_LOAD_ERROR = 7
+    OSQP_CODEGEN_DEFINES_ERROR = 8
+    OSQP_DATA_NOT_INITIALIZED = 9
+    OSQP_FUNC_NOT_IMPLEMENTED = 10
+
+
+class LinsysSolverType(IntEnum):
+    OSQP_DIRECT_SOLVER = 0
+    OSQP_INDIRECT_SOLVER = 1
+
+
+class PrecondType(IntEnum):
+    OSQP_NO_PRECONDITIONER = 0
+    OSQP_DIAGONAL_PRECONDITIONER = 1
+
+
+class CapabilitiesType(IntEnum):
+    OSQP_CAPABILITY_DIRECT_SOLVER = 0x01
+    OSQP_CAPABILITY_INDIRECT_SOLVER = 0x02
+    OSQP_CAPABILITY_CODEGEN = 0x04
+    OSQP_CAPABILITY_UPDATE_MATRICES = 0x08
+    OSQP_CAPABILITY_DERIVATIVES = 0x10
 
 
 _STATUS_STRINGS = {

@@ -1,8 +1,9 @@
 """Carry the JAX package's setup state into the port.
 
-``from_jax_setup`` takes numpy arrays, never JAX arrays, so this module (like
-the rest of the port) imports nothing of JAX.  With it a test starts both epoch
-loops from identical state and holds the loop apart from setup.
+``from_jax_setup`` (the shared batched engine) and ``from_jax_solver`` (the
+single-QP ``Solver``) take numpy arrays, never JAX arrays, so this module
+(like the rest of the port) imports nothing of JAX.  With them a test starts
+both loops from identical state and holds the loop apart from setup.
 """
 
 from __future__ import annotations
@@ -10,8 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.spmv import DiaMatrix
 from .settings import np_dtype
-from .solver.core import Scaling
+from .solver.core import Factor, Iterates, QPData, RhoState, Scaling
 
 
 def from_jax_setup(arrays, device, dtype):
@@ -33,3 +35,45 @@ def from_jax_setup(arrays, device, dtype):
     scal_t = Scaling(D=t(D), Dinv=t(Dinv), E=t(E), Einv=t(Einv), c=f(c), cinv=f(cinv))
     return (t(P_s), t(A_s), t(Q), t(L), t(U), scal_t, f(rho0), t(Minv), t(M),
             t(rho_vec), t(X), t(Z), t(Y))
+
+
+def from_jax_solver(arrays, device, dtype):
+    """Port state from ``osqp_tpu.backends.jax_backend.Solver`` after setup.
+
+    ``arrays`` is a dict of numpy arrays:
+
+    - ``P``, ``A``: a 2-D array (dense mode), or for a DIA operator a dict
+      with ``bands``, ``offsets``, ``bands_t``, ``offsets_t`` and ``shape``;
+    - ``q``, ``l``, ``u``: the scaled vectors;
+    - ``scal``: ``(D, Dinv, E, Einv, c, cinv)``;
+    - ``rho``: ``(rho, rho_vec, rho_inv_vec, constr_type)``;
+    - ``factor``: ``(L, diag)``, with ``L`` empty in indirect mode;
+    - ``iterates``: ``(x, z, y)``.
+
+    Returns ``(QPData, Scaling, RhoState, Factor, Iterates)`` on ``device`` at
+    ``dtype``; ``c``, ``cinv`` and ``rho`` become host scalars of ``dtype``.
+    """
+    f = np_dtype(dtype)
+    device = torch.device(device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, dtype=f), device=device)
+
+    def op(M):
+        if isinstance(M, dict):
+            return DiaMatrix(t(M['bands']), M['offsets'], t(M['bands_t']), M['offsets_t'],
+                             M['shape'])
+        return t(M)
+
+    data = QPData(P=op(arrays['P']), q=t(arrays['q']), A=op(arrays['A']),
+                  l=t(arrays['l']), u=t(arrays['u']))
+    D, Dinv, E, Einv, c, cinv = arrays['scal']
+    scal = Scaling(D=t(D), Dinv=t(Dinv), E=t(E), Einv=t(Einv), c=f(c), cinv=f(cinv))
+    rho, rho_vec, rho_inv, types = arrays['rho']
+    rho_state = RhoState(rho=f(rho), rho_vec=t(rho_vec), rho_inv_vec=t(rho_inv),
+                         constr_type=torch.tensor(np.asarray(types, np.int8), device=device))
+    L, diag = arrays['factor']
+    L = np.asarray(L)
+    factor = Factor(L=t(L) if L.size else None, diag=t(diag), Minv=None)
+    iterates = Iterates(*(t(v) for v in arrays['iterates']))
+    return data, scal, rho_state, factor, iterates

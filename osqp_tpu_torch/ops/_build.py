@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
@@ -50,6 +51,12 @@ def build(name: str) -> Path:
     lib.with_suffix('.log').write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def build_all(names) -> list[Path]:
+    """``build`` for each name, all nvcc processes started together."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return list(pool.map(build, names))
 
 
 def load_library(name: str) -> ctypes.CDLL:

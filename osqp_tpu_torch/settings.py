@@ -1,7 +1,8 @@
-"""Solver settings: the host-side dataclass and its solver form.
+"""Solver settings and results: the host-side dataclasses and the solver form.
 
-``OracleSettings`` is an own copy of ``osqp_tpu._oracle.solver.OracleSettings``
-(reference defaults).  ``core_settings`` is the host-to-solver conversion of
+``OracleSettings``, ``Info`` and ``Solution`` are own copies of the
+dataclasses of ``osqp_tpu._oracle.solver`` (reference defaults).
+``core_settings`` is the host-to-solver conversion of
 ``osqp_tpu.backends.jax_backend.Solver._core_settings``: every float setting
 becomes a numpy scalar of the working dtype, so it enters every expression at
 that dtype exactly as the JAX package's traced settings do; integers and flags
@@ -11,12 +12,12 @@ stay host values, because the port's epoch loop runs on the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .constants import ADAPTIVE_RHO_FIXED
+from .constants import ADAPTIVE_RHO_FIXED, SolverStatus
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -64,8 +65,43 @@ class OracleSettings:
     time_limit: float = 0.0
 
 
+@dataclasses.dataclass
+class Info:
+    iter: int = 0
+    status: str = 'unsolved'
+    status_val: int = int(SolverStatus.OSQP_UNSOLVED)
+    status_polish: int = 0
+    obj_val: float = np.nan
+    dual_obj_val: float = np.nan
+    prim_res: float = np.inf
+    dual_res: float = np.inf
+    duality_gap: float = np.nan
+    rho_updates: int = 0
+    rho_estimate: float = 0.1
+    setup_time: float = 0.0
+    solve_time: float = 0.0
+    update_time: float = 0.0
+    polish_time: float = 0.0
+    run_time: float = 0.0
+    primdual_int: int = 0
+    rel_kkt_error: float = 0.0
+    # the port's own counters: CG steps and host syncs of the last solve
+    cg_iters: int = 0
+    host_syncs: int = 0
+
+
+@dataclasses.dataclass
+class Solution:
+    x: Optional[np.ndarray] = None
+    y: Optional[np.ndarray] = None
+    prim_inf_cert: Optional[np.ndarray] = None
+    dual_inf_cert: Optional[np.ndarray] = None
+    linesearch: Optional[object] = None
+
+
 class CoreSettings(NamedTuple):
-    """Settings as the shared engine reads them."""
+    """Settings as the solver loops read them (the single-QP core and the
+    shared engine; the latter ignores the CG fields)."""
 
     sigma: np.floating
     alpha: np.floating
@@ -81,6 +117,10 @@ class CoreSettings(NamedTuple):
     adaptive_rho_tolerance: np.floating
     rho_is_vec: bool
     iter_cap: int  # iterations allowed this call (== max_iter)
+    cg_max_iter: int
+    cg_tol_fraction: np.floating
+    cg_tol_reduction: np.floating  # stall-triggered CG-tolerance division factor
+    cg_eps_min: np.floating  # CG tolerance floor: 1e-12 at f64, 1e-7 at f32
 
 
 def core_settings(stg: OracleSettings, dtype: torch.dtype) -> CoreSettings:
@@ -104,6 +144,10 @@ def core_settings(stg: OracleSettings, dtype: torch.dtype) -> CoreSettings:
         adaptive_rho_tolerance=f(stg.adaptive_rho_tolerance),
         rho_is_vec=bool(stg.rho_is_vec),
         iter_cap=int(stg.max_iter),
+        cg_max_iter=int(stg.cg_max_iter),
+        cg_tol_fraction=f(stg.cg_tol_fraction),
+        cg_tol_reduction=f(stg.cg_tol_reduction),
+        cg_eps_min=f(1e-12 if dtype == torch.float64 else 1e-7),
     )
 
 

@@ -1,18 +1,31 @@
-"""The parts of the ADMM core that the shared-structure engine uses.
+"""The ADMM solver core on torch tensors.
 
 Counterpart of ``osqp_tpu/solver/core.py``: Ruiz equilibration, constraint
-typing and vector rho, and the normal-equations operator
-``M(rho) = P + sigma I + A' diag(rho) A`` with its explicit inverse.
+typing and vector rho, the normal-equations operator
+``M(rho) = P + sigma I + A' diag(rho) A`` with its Cholesky factor (direct
+mode), its explicit inverse (the shared batched engine) or its diagonal (the
+preconditioner of the indirect PCG mode), the ADMM iteration, the
+termination check with both infeasibility certificates, adaptive rho and the
+single-QP solve loop.
+
+The JAX package runs the loop as one jitted ``lax.while_loop`` over epochs.
+Here it is a host loop over epochs (``solve_scaled``) that reads on the host
+the values that decide branches: the termination check's outcome once per
+check epoch, the rho estimate once per adaptation epoch and, in indirect
+mode, the CG residual norm once per CG step.  Each read is one host sync and
+is counted.  P and A are dense tensors or ``ops.spmv.DiaMatrix`` operators;
+the core only uses ``@``, ``.T`` and ``.shape`` on them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..settings import np_dtype
+from ..settings import CoreSettings, np_dtype
 from ..constants import (
     MAX_SCALING,
     MIN_SCALING,
@@ -21,15 +34,25 @@ from ..constants import (
     RHO_MAX,
     RHO_MIN,
     RHO_TOL,
+    SolverStatus,
 )
 
+_UNSOLVED = int(SolverStatus.OSQP_UNSOLVED)
+_SOLVED = int(SolverStatus.OSQP_SOLVED)
+_SOLVED_INACC = int(SolverStatus.OSQP_SOLVED_INACCURATE)
+_PRIM_INF = int(SolverStatus.OSQP_PRIMAL_INFEASIBLE)
+_PRIM_INF_INACC = int(SolverStatus.OSQP_PRIMAL_INFEASIBLE_INACCURATE)
+_DUAL_INF = int(SolverStatus.OSQP_DUAL_INFEASIBLE)
+_DUAL_INF_INACC = int(SolverStatus.OSQP_DUAL_INFEASIBLE_INACCURATE)
+_MAX_ITER = int(SolverStatus.OSQP_MAX_ITER_REACHED)
+_NON_CVX = int(SolverStatus.OSQP_NON_CVX)
 
 class QPData(NamedTuple):
-    """Scaled problem data (dense)."""
+    """Scaled problem data: P and A dense tensors or DIA operators."""
 
-    P: torch.Tensor  # (n, n) symmetric
+    P: object  # (n, n) symmetric
     q: torch.Tensor  # (n,)
-    A: torch.Tensor  # (m, n)
+    A: object  # (m, n)
     l: torch.Tensor  # (m,)
     u: torch.Tensor  # (m,)
 
@@ -43,13 +66,59 @@ class Scaling(NamedTuple):
     cinv: np.floating
 
 
-class Factor(NamedTuple):
-    """KKT factorization state in explicit-inverse ('inv') mode: ``L`` is M
-    itself (kept for the refinement term of the affine map) and ``Minv`` its
-    inverse."""
+class RhoState(NamedTuple):
+    rho: np.floating  # clamped setting value, a host scalar of the working dtype
+    rho_vec: torch.Tensor  # (m,)
+    rho_inv_vec: torch.Tensor  # (m,)
+    constr_type: torch.Tensor  # (m,) int8: -1 loose, 0 ineq, 1 eq
 
-    L: torch.Tensor  # (n, n)
-    Minv: torch.Tensor  # (n, n)
+
+class Factor(NamedTuple):
+    """KKT factorization state.
+
+    kkt_method='chol': ``L`` the Cholesky factor of M, ``Minv`` None.
+    kkt_method='inv' (the shared engine): ``L`` is M itself (kept for the
+    refinement term of the affine map) and ``Minv`` its inverse.
+    Indirect mode: ``L`` and ``Minv`` None; ``diag`` = diag(M), the CG
+    preconditioner."""
+
+    L: Optional[torch.Tensor]  # (n, n)
+    diag: torch.Tensor  # (n,)
+    Minv: Optional[torch.Tensor]  # (n, n)
+
+
+class Iterates(NamedTuple):
+    x: torch.Tensor  # (n,)
+    z: torch.Tensor  # (m,)
+    y: torch.Tensor  # (m,)
+
+
+class SolveResult(NamedTuple):
+    x: torch.Tensor  # unscaled primal (NaN if infeasible)
+    y: torch.Tensor  # unscaled dual (NaN if infeasible)
+    prim_inf_cert: torch.Tensor
+    dual_inf_cert: torch.Tensor
+    status: int
+    iters: int
+    pri_res: np.floating
+    dua_res: np.floating
+    obj_val: np.floating
+    dual_obj_val: np.floating
+    duality_gap: np.floating
+    rho_estimate: np.floating
+    rho_updates: int
+    cg_iters: int
+    host_syncs: int
+    rel_kkt_error: np.floating
+    primdual_acc: np.floating
+    iterates: Iterates  # final scaled iterates (for warm restarts)
+    rho: RhoState
+    factor: Factor
+
+
+# ---------------------------------------------------------------------------
+# Small helpers
+# ---------------------------------------------------------------------------
 
 
 def _inf_norm(v):
@@ -61,10 +130,16 @@ def _limit_scaling(v):
     return torch.where(v < MIN_SCALING, torch.ones_like(v), v.clamp(max=MAX_SCALING))
 
 
+# ---------------------------------------------------------------------------
+# Ruiz equilibration (ref _osqp.py:389-497)
+# ---------------------------------------------------------------------------
+
+
 def ruiz_scale(P, q, A, l, u, n_iters: int):
     """Modified-Ruiz equilibration of the stacked KKT columns plus cost
-    normalization (ref _osqp.py:389-497).  Returns (QPData, Scaling); the
-    scaling's ``c`` and ``cinv`` come back as host scalars of P's dtype."""
+    normalization (ref _osqp.py:389-497), on dense tensors.  Returns
+    (QPData, Scaling); the scaling's ``c`` and ``cinv`` come back as host
+    scalars of P's dtype."""
     n = P.shape[0]
     m = A.shape[0]
     D = torch.ones(n, dtype=P.dtype, device=P.device)
@@ -102,6 +177,18 @@ def ruiz_scale(P, q, A, l, u, n_iters: int):
     return QPData(P=P, q=q, A=A, l=l, u=u), scal
 
 
+def identity_scaling(n, m, dtype, device):
+    f = np_dtype(dtype)
+    one_n = torch.ones((n,), dtype=dtype, device=device)
+    one_m = torch.ones((m,), dtype=dtype, device=device)
+    return Scaling(D=one_n, Dinv=one_n, E=one_m, Einv=one_m, c=f(1), cinv=f(1))
+
+
+# ---------------------------------------------------------------------------
+# rho management (ref _osqp.py:499-562)
+# ---------------------------------------------------------------------------
+
+
 def constraint_types(l, u):
     """-1 loose, 0 inequality, 1 equality (int8)."""
     loose = (l < -OSQP_INFTY * MIN_SCALING) & (u > OSQP_INFTY * MIN_SCALING)
@@ -109,11 +196,17 @@ def constraint_types(l, u):
     return torch.where(loose, -1, torch.where(eq, 1, 0)).to(torch.int8)
 
 
+def clip_rho(rho, dtype):
+    """rho clamped to [RHO_MIN, RHO_MAX], a host scalar of ``dtype``."""
+    f = np_dtype(dtype)
+    return f(min(max(f(rho), f(RHO_MIN)), f(RHO_MAX)))
+
+
 def rho_vec_from_types(types, rho, rho_is_vec: bool, dtype: torch.dtype):
     """Per-constraint rho from the constraint types; ``rho`` is a host scalar,
     taken at ``dtype`` as the JAX package's traced rho is."""
     f = np_dtype(dtype)
-    rho = f(min(max(f(rho), f(RHO_MIN)), f(RHO_MAX)))
+    rho = clip_rho(rho, dtype)
     vec = torch.full(types.shape, rho, dtype=dtype, device=types.device)
     if not rho_is_vec:
         return vec
@@ -123,8 +216,21 @@ def rho_vec_from_types(types, rho, rho_is_vec: bool, dtype: torch.dtype):
     )
 
 
+def make_rho_state(l, u, rho, rho_is_vec: bool) -> RhoState:
+    rho = clip_rho(rho, l.dtype)
+    types = constraint_types(l, u)
+    vec = rho_vec_from_types(types, rho, rho_is_vec, l.dtype)
+    inv = torch.where(vec > 0, 1.0 / vec, 0.0)
+    return RhoState(rho=rho, rho_vec=vec, rho_inv_vec=inv, constr_type=types)
+
+
+# ---------------------------------------------------------------------------
+# KKT operator
+# ---------------------------------------------------------------------------
+
+
 def build_M(P, A, sigma, rho_vec):
-    """Normal-equations operator M = P + sigma I + A' diag(rho) A."""
+    """Normal-equations operator M = P + sigma I + A' diag(rho) A (dense)."""
     n = P.shape[0]
     M = P + sigma * torch.eye(n, dtype=P.dtype, device=P.device)
     if A.shape[0]:
@@ -132,11 +238,491 @@ def build_M(P, A, sigma, rho_vec):
     return M
 
 
-def factorize_inv(P, A, sigma, rho_vec) -> Factor:
-    """``factorize(..., 'inv')``: Cholesky of M, then its inverse by two
-    triangular solves against the identity."""
+def mat_diag(P):
+    """Diagonal of a dense or DIA square matrix."""
+    if isinstance(P, torch.Tensor):
+        return torch.diagonal(P)
+    return P.diag()
+
+
+def gram_diag(A, rho_vec):
+    """diag(A' diag(rho) A) for a dense or DIA A."""
+    if isinstance(A, torch.Tensor):
+        return torch.sum(rho_vec[:, None] * A * A, dim=0)
+    return A.gram_diag(rho_vec)
+
+
+def build_M_diag(P, A, sigma, rho_vec):
+    """diag(M) without forming M (the CG preconditioner)."""
+    d = mat_diag(P) + sigma
+    if A.shape[0]:
+        d = d + gram_diag(A, rho_vec)
+    return d
+
+
+def factorize(P, A, sigma, rho_vec, kkt_method: str = 'chol') -> Factor:
+    """Cholesky factor of M ('chol') or M and its inverse ('inv').  A matrix
+    that is not positive definite gives a NaN factor, as JAX's Cholesky does."""
     M = build_M(P, A, sigma, rho_vec)
-    L = torch.linalg.cholesky(M)
-    eye = torch.eye(M.shape[0], dtype=M.dtype, device=M.device)
-    Minv = torch.cholesky_solve(eye, L)
-    return Factor(L=M, Minv=Minv)
+    L, info = torch.linalg.cholesky_ex(M)
+    L = torch.where(info == 0, L, torch.nan)
+    if kkt_method == 'inv':
+        eye = torch.eye(M.shape[0], dtype=M.dtype, device=M.device)
+        return Factor(L=M, diag=torch.diagonal(M), Minv=torch.cholesky_solve(eye, L))
+    if kkt_method != 'chol':
+        raise ValueError(f"kkt_method must be 'chol' or 'inv', got {kkt_method!r}")
+    return Factor(L=L, diag=torch.diagonal(M), Minv=None)
+
+
+def _cho_solve(L, b):
+    vec = b.dim() == 1
+    B = b[:, None] if vec else b
+    t = torch.linalg.solve_triangular(L, B, upper=False)
+    x = torch.linalg.solve_triangular(L.T, t, upper=True)
+    return x[:, 0] if vec else x
+
+
+def pcg_solve(P, A, sigma, rho_vec, diag, b, x0, rel_tol, max_iter: int):
+    """Diagonally-preconditioned conjugate gradient on M(rho).
+
+    Runs until ``||r||_2 <= max(rel_tol * ||b||_2, tiny)`` or ``max_iter``
+    steps, testing that condition before every step as the JAX package's
+    ``lax.while_loop`` does; each test reads one value from the device.
+    Returns ``(x, iters, host_syncs)``."""
+
+    def matvec(v):
+        Mv = P @ v + sigma * v
+        if A.shape[0]:
+            Mv = Mv + A.T @ (rho_vec * (A @ v))
+        return Mv
+
+    dinv = 1.0 / diag
+    b_norm = torch.sqrt(b @ b)
+    tol = torch.clamp(rel_tol * b_norm, min=torch.finfo(b.dtype).tiny)
+
+    x = x0
+    r = b - matvec(x0)
+    z = dinv * r
+    p = z
+    rz = r @ z
+    k = 0
+    syncs = 0
+    while k < max_iter:
+        syncs += 1
+        if not bool(torch.sqrt(r @ r) > tol):
+            break
+        Mp = matvec(p)
+        denom = p @ Mp
+        alpha = rz / torch.where(denom != 0, denom, 1.0)
+        x = x + alpha * p
+        r = r - alpha * Mp
+        z = dinv * r
+        rz_new = r @ z
+        beta = rz_new / torch.where(rz != 0, rz, 1.0)
+        p = z + beta * p
+        rz = rz_new
+        k += 1
+    return x, k, syncs
+
+
+# ---------------------------------------------------------------------------
+# Residuals / termination (ref _osqp.py:705-878, 998-1077)
+# ---------------------------------------------------------------------------
+
+
+def compute_info(data: QPData, scal: Scaling, x, z, y, settings: CoreSettings,
+                 eps_abs=None, eps_rel=None):
+    """Residual norms, objective values and tolerances, scaled or unscaled
+    per settings, as 0-d tensors: ``(pri_res, dua_res, obj_val,
+    dual_obj_val, eps_pri, eps_dua, gap_noise)``.  ``eps_abs``/``eps_rel``
+    override the settings' (the 10x check)."""
+    m = data.A.shape[0]
+    dtype = x.dtype
+    f = np_dtype(dtype)
+    eps_abs = settings.eps_abs if eps_abs is None else eps_abs
+    eps_rel = settings.eps_rel if eps_rel is None else eps_rel
+    unscaled = not settings.scaled_termination
+    Px = data.P @ x
+    Ax = data.A @ x if m else x.new_zeros((0,))
+    Aty = data.A.T @ y if m else torch.zeros_like(x)
+
+    # primal residual (ref _osqp.py:714-726)
+    if m:
+        pri_vec = Ax - z
+        pri_res = _inf_norm(scal.Einv * pri_vec) if unscaled else _inf_norm(pri_vec)
+    else:
+        pri_res = x.new_zeros(())
+
+    # dual residual (ref _osqp.py:753-764)
+    dua_vec = Px + data.q + Aty
+    dua_res = scal.cinv * _inf_norm(scal.Dinv * dua_vec) if unscaled else _inf_norm(dua_vec)
+
+    # objective (ref _osqp.py:705-712)
+    quad = 0.5 * (x @ Px)
+    qx = data.q @ x
+    obj_val = (quad + qx) * scal.cinv
+
+    # unscaled dual objective (loose-bound terms dropped); computational
+    # zeros of y (below eps_mach * |y|_inf) are cut before the sup
+    if m:
+        y_u = scal.cinv * (scal.E * y)
+        y_tol = torch.finfo(dtype).eps * _inf_norm(y_u)
+        y_u = torch.where(y_u.abs() > y_tol, y_u, 0.0)
+        l_u = scal.Einv * data.l
+        u_u = scal.Einv * data.u
+        loose = f(OSQP_INFTY * MIN_SCALING)
+        sup_pos = torch.where(u_u < loose, u_u * torch.clamp(y_u, min=0), 0.0)
+        sup_neg = torch.where(l_u > -loose, l_u * torch.clamp(y_u, max=0), 0.0)
+        sup = torch.sum(sup_pos) + torch.sum(sup_neg)
+        sup_mag = torch.sum(sup_pos.abs()) + torch.sum(sup_neg.abs())
+    else:
+        sup = x.new_zeros(())
+        sup_mag = x.new_zeros(())
+    dual_obj_val = -quad * scal.cinv - sup
+    # rounding-noise floor of the computed duality gap
+    gap_noise = torch.finfo(dtype).eps * (
+        sup_mag + (quad * scal.cinv).abs() + qx.abs() * scal.cinv)
+
+    # negative curvature -> non-convex flag via exploding residual
+    noncvx = quad * scal.cinv < -1e-12 * torch.clamp(x @ x, min=1.0)
+    pri_res = torch.where(noncvx, f(2 * OSQP_INFTY), pri_res)
+
+    # tolerances (ref _osqp.py:728-751, 766-794)
+    if m:
+        Ax_t = _inf_norm(scal.Einv * Ax) if unscaled else _inf_norm(Ax)
+        z_t = _inf_norm(scal.Einv * z) if unscaled else _inf_norm(z)
+        max_rel_pri = torch.maximum(Ax_t, z_t)
+    else:
+        max_rel_pri = x.new_zeros(())
+    eps_pri = eps_abs + eps_rel * max_rel_pri
+
+    def _d(v):
+        return _inf_norm(scal.Dinv * v) if unscaled else _inf_norm(v)
+
+    scale_d = scal.cinv if unscaled else f(1)
+    max_rel_dua = scale_d * torch.maximum(torch.maximum(_d(Aty), _d(Px)), _d(data.q))
+    eps_dua = eps_abs + eps_rel * max_rel_dua
+
+    return pri_res, dua_res, obj_val, dual_obj_val, eps_pri, eps_dua, gap_noise
+
+
+def primal_infeasibility(data: QPData, scal: Scaling, delta_y, eps_prim_inf, unscaled: bool):
+    """(ref _osqp.py:796-820)"""
+    if data.A.shape[0] == 0:
+        return torch.zeros((), dtype=torch.bool, device=delta_y.device)
+    norm_dy = _inf_norm(scal.E * delta_y) if unscaled else _inf_norm(delta_y)
+    lhs = data.u @ torch.clamp(delta_y, min=0) + data.l @ torch.clamp(delta_y, max=0)
+    At_dy = data.A.T @ delta_y
+    At_dy_n = _inf_norm(scal.Dinv * At_dy) if unscaled else _inf_norm(At_dy)
+    return ((norm_dy > eps_prim_inf) & (lhs < -eps_prim_inf * norm_dy)
+            & (At_dy_n < eps_prim_inf * norm_dy))
+
+
+def dual_infeasibility(data: QPData, scal: Scaling, delta_x, eps_dual_inf, unscaled: bool):
+    """(ref _osqp.py:822-878)"""
+    m = data.A.shape[0]
+    f = np_dtype(delta_x.dtype)
+    norm_dx = _inf_norm(scal.D * delta_x) if unscaled else _inf_norm(delta_x)
+    cost_scale = scal.c if unscaled else f(1)
+    ok = norm_dx > eps_dual_inf
+    ok &= (data.q @ delta_x) < -cost_scale * eps_dual_inf * norm_dx
+    P_dx = data.P @ delta_x
+    P_dx_n = _inf_norm(scal.Dinv * P_dx) if unscaled else _inf_norm(P_dx)
+    ok &= P_dx_n < cost_scale * eps_dual_inf * norm_dx
+    if m:
+        A_dx = data.A @ delta_x
+        if unscaled:
+            A_dx = scal.Einv * A_dx
+        loose = f(OSQP_INFTY * MIN_SCALING)
+        bad = ((data.u < loose) & (A_dx > eps_dual_inf * norm_dx)) | (
+            (data.l > -loose) & (A_dx < -eps_dual_inf * norm_dx))
+        ok &= ~torch.any(bad)
+    return ok
+
+
+def termination_status(data: QPData, scal: Scaling, x, z, y, delta_x, delta_y,
+                       settings: CoreSettings, approximate: bool):
+    """The full termination decision at the given iterates, as 0-d tensors
+    ``(status, pri_res, dua_res, obj_val, dual_obj_val, rel_kkt)``; status
+    is UNSOLVED if not terminal."""
+    f = np_dtype(x.dtype)
+    factor = f(10.0 if approximate else 1.0)
+    eps_abs = settings.eps_abs * factor
+    eps_rel = settings.eps_rel * factor
+    eps_pinf = settings.eps_prim_inf * factor
+    eps_dinf = settings.eps_dual_inf * factor
+    unscaled = not settings.scaled_termination
+    m = data.A.shape[0]
+
+    pri_res, dua_res, obj_val, dual_obj, eps_pri, eps_dua, gap_noise = compute_info(
+        data, scal, x, z, y, settings, eps_abs, eps_rel)
+
+    noncvx = (pri_res > OSQP_INFTY) | (dua_res > OSQP_INFTY)
+    pri_check = pri_res < eps_pri if m else torch.ones((), dtype=torch.bool, device=x.device)
+    dua_check = dua_res < eps_dua
+    gap = obj_val - dual_obj
+    eps_gap = eps_abs + eps_rel * torch.maximum(obj_val.abs(), dual_obj.abs()) + 10.0 * gap_noise
+    if settings.check_dualgap:
+        gap_ok = torch.isfinite(gap) & (gap.abs() < eps_gap)
+    else:
+        gap_ok = torch.ones((), dtype=torch.bool, device=x.device)
+    pinf = ~pri_check & primal_infeasibility(data, scal, delta_y, eps_pinf, unscaled)
+    dinf = ~dua_check & dual_infeasibility(data, scal, delta_x, eps_dinf, unscaled)
+
+    solved_code = _SOLVED_INACC if approximate else _SOLVED
+    pinf_code = _PRIM_INF_INACC if approximate else _PRIM_INF
+    dinf_code = _DUAL_INF_INACC if approximate else _DUAL_INF
+    un = torch.tensor(_UNSOLVED, dtype=torch.int32, device=x.device)
+    status = torch.where(
+        noncvx, _NON_CVX,
+        torch.where(pri_check & dua_check & gap_ok, solved_code,
+                    torch.where(pinf, pinf_code, torch.where(dinf, dinf_code, un))),
+    ).to(torch.int32)
+
+    obj_val = torch.where(
+        status == _NON_CVX, torch.nan,
+        torch.where(status == pinf_code, f(OSQP_INFTY),
+                    torch.where(status == dinf_code, f(-OSQP_INFTY), obj_val)))
+
+    # relative KKT error; the scales come back from eps = eps_abs + eps_rel * scale
+    one = pri_res.new_ones(())
+    if eps_rel > 0:
+        den = max(eps_rel, f(1e-30))
+        scale_pri = (eps_pri - eps_abs) / den
+        scale_dua = (eps_dua - eps_abs) / den
+    else:
+        scale_pri = scale_dua = one
+    gap_rel = torch.where(
+        torch.isfinite(gap),
+        gap.abs() / torch.maximum(one, torch.maximum(obj_val.abs(), dual_obj.abs())),
+        0.0)
+    pri_fin = torch.where(torch.isfinite(pri_res), pri_res, 0.0)
+    rel_kkt = torch.maximum(
+        torch.maximum(pri_fin / torch.maximum(one, scale_pri),
+                      dua_res / torch.maximum(one, scale_dua)),
+        gap_rel)
+    return status, pri_res, dua_res, obj_val, dual_obj, rel_kkt
+
+
+# ---------------------------------------------------------------------------
+# The solve loop
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class LoopState:
+    """The host loop's state: iterate tensors and host scalars."""
+
+    it: int
+    status: int
+    x: torch.Tensor
+    z: torch.Tensor
+    y: torch.Tensor
+    xtld: torch.Tensor  # last x_tilde (CG warm start)
+    delta_x: torch.Tensor
+    delta_y: torch.Tensor
+    rho: RhoState
+    factor: Factor
+    pri_res: np.floating
+    dua_res: np.floating
+    obj_val: np.floating
+    dual_obj_val: np.floating
+    rho_estimate: np.floating
+    rho_updates: int
+    cg_tol: np.floating  # adaptive CG relative tolerance
+    cg_iters: int
+    rel_kkt: np.floating
+    primdual_acc: np.floating
+    host_syncs: int
+
+
+def admm_iteration(data: QPData, settings: CoreSettings, st: LoopState, indirect: bool):
+    """One ADMM step (ref _osqp.py:644-703); updates ``st`` in place."""
+    m = data.A.shape[0]
+    x_prev, z_prev, y = st.x, st.z, st.y
+    rho_vec, rho_inv = st.rho.rho_vec, st.rho.rho_inv_vec
+
+    # KKT rhs, reduced to the normal-equations rhs:
+    #   b1 = sigma x - q ; b2 = z - y/rho ;  rhs = b1 + A' diag(rho) b2
+    b1 = settings.sigma * x_prev - data.q
+    if m:
+        b2 = z_prev - rho_inv * y
+        rhs = b1 + data.A.T @ (rho_vec * b2)
+    else:
+        rhs = b1
+
+    if indirect:
+        x_tilde, k, syncs = pcg_solve(data.P, data.A, settings.sigma, rho_vec, st.factor.diag,
+                                      rhs, st.xtld, st.cg_tol, settings.cg_max_iter)
+        st.cg_iters += k
+        st.host_syncs += syncs
+    else:
+        x_tilde = _cho_solve(st.factor.L, rhs)
+
+    alpha = settings.alpha
+    one_m_alpha = type(alpha)(1) - alpha
+    x = alpha * x_tilde + one_m_alpha * x_prev
+    if m:
+        nu = rho_vec * (data.A @ x_tilde - b2)
+        z_tilde = z_prev + rho_inv * (nu - y)
+        z_relax = alpha * z_tilde + one_m_alpha * z_prev
+        z = torch.clamp(z_relax + rho_inv * y, data.l, data.u)
+        delta_y = rho_vec * (z_relax - z)
+        y = y + delta_y
+    else:
+        z = z_prev
+        delta_y = st.delta_y
+    st.x, st.z, st.y, st.xtld = x, z, y, x_tilde
+    st.delta_x = x - x_prev
+    st.delta_y = delta_y
+
+
+def rho_estimate_fn(data: QPData, x, z, y, rho):
+    """New rho from the relative residuals (ref _osqp.py:880-930), a 0-d
+    tensor clipped to [RHO_MIN, RHO_MAX]."""
+    m = data.A.shape[0]
+    Ax = data.A @ x if m else x.new_zeros((0,))
+    Px = data.P @ x
+    Aty = data.A.T @ y if m else torch.zeros_like(x)
+    pri = _inf_norm(Ax - z) if m else x.new_zeros(())
+    if m:
+        pri = pri / (torch.maximum(_inf_norm(Ax), _inf_norm(z)) + 1e-10)
+    dua = _inf_norm(Px + data.q + Aty)
+    dua = dua / (torch.maximum(torch.maximum(_inf_norm(Aty), _inf_norm(Px)),
+                               _inf_norm(data.q)) + 1e-10)
+    new_rho = rho * torch.sqrt(pri / (dua + 1e-10))
+    return torch.clamp(new_rho, RHO_MIN, RHO_MAX)
+
+
+def _host(st: LoopState, *tensors):
+    """Copy 0-d tensors to the host in one transfer: one host sync."""
+    st.host_syncs += 1
+    return torch.stack([t.to(tensors[0].dtype) for t in tensors]).cpu().numpy()
+
+
+def adapt_rho(data: QPData, settings: CoreSettings, st: LoopState, indirect: bool):
+    """Adaptive rho: estimate, and on a trigger rebuild the rho vector and
+    refactor (direct) or rebuild the preconditioner diagonal (indirect)."""
+    f = np_dtype(st.x.dtype)
+    rho_new = f(_host(st, rho_estimate_fn(data, st.x, st.z, st.y, st.rho.rho))[0])
+    tol = settings.adaptive_rho_tolerance
+    if rho_new > tol * st.rho.rho or rho_new < st.rho.rho / tol:
+        dtype = st.x.dtype
+        vec = rho_vec_from_types(st.rho.constr_type, rho_new, settings.rho_is_vec, dtype)
+        inv = torch.where(vec > 0, 1.0 / vec, 0.0)
+        st.rho = RhoState(rho=clip_rho(rho_new, dtype), rho_vec=vec, rho_inv_vec=inv,
+                          constr_type=st.rho.constr_type)
+        if indirect:
+            st.factor = st.factor._replace(diag=build_M_diag(data.P, data.A, settings.sigma, vec))
+        else:
+            st.factor = factorize(data.P, data.A, settings.sigma, vec)
+        st.rho_updates += 1
+    st.rho_estimate = rho_new
+
+
+def _run_check(data, scal, settings, st: LoopState, approximate=False):
+    """Termination check at the current iterates, read to the host in one
+    transfer.  Returns ``(status, pri, dua, obj, dobj, rel_kkt)``."""
+    f = np_dtype(st.x.dtype)
+    out = termination_status(data, scal, st.x, st.z, st.y, st.delta_x, st.delta_y,
+                             settings, approximate)
+    vals = _host(st, *out[1:], out[0])
+    return (int(vals[5]), *(f(v) for v in vals[:5]))
+
+
+def solve_scaled(data: QPData, scal: Scaling, settings: CoreSettings, rho: RhoState,
+                 factor: Factor, iterates: Iterates, indirect: bool = False) -> SolveResult:
+    """Run the ADMM loop on already-scaled data: epochs of
+    ``check_termination`` iterations, each followed by the termination check,
+    the CG-tolerance update (indirect mode) and, every adaptation interval,
+    adaptive rho; then the post-loop 10x check and unscaling
+    (``osqp_tpu/solver/core.py::solve_scaled_impl``)."""
+    n = data.P.shape[0]
+    m = data.A.shape[0]
+    x0 = iterates.x
+    dtype = x0.dtype
+    f = np_dtype(dtype)
+
+    st = LoopState(
+        it=0, status=_UNSOLVED,
+        x=iterates.x, z=iterates.z, y=iterates.y, xtld=iterates.x,
+        delta_x=x0.new_zeros((n,)), delta_y=x0.new_zeros((m,)),
+        rho=rho, factor=factor,
+        pri_res=f(np.inf), dua_res=f(np.inf), obj_val=f(np.nan), dual_obj_val=f(np.nan),
+        rho_estimate=rho.rho, rho_updates=0, cg_tol=f(1e-3), cg_iters=0,
+        rel_kkt=f(1), primdual_acc=f(0), host_syncs=0,
+    )
+
+    ct = settings.check_termination
+    iter_cap = settings.iter_cap
+    epoch_len = ct if ct > 0 else iter_cap
+    interval = settings.adaptive_rho_interval
+    epochs_per_adapt = max((interval + epoch_len - 1) // max(epoch_len, 1), 1)
+
+    while st.it < iter_cap and st.status == _UNSOLVED:
+        this_epoch = min(epoch_len, iter_cap - st.it)
+        for _ in range(this_epoch):
+            admm_iteration(data, settings, st, indirect)
+        st.it += this_epoch
+
+        pri_before, dua_before = st.pri_res, st.dua_res
+        do_check = ct > 0 and st.it % max(ct, 1) == 0
+        if do_check:
+            (st.status, st.pri_res, st.dua_res, st.obj_val, st.dual_obj_val,
+             st.rel_kkt) = _run_check(data, scal, settings, st)
+        # primal-dual integral: iteration integral of the capped relative
+        # KKT error (last-known value; converted to time by the backend)
+        st.primdual_acc = st.primdual_acc + f(this_epoch) * np.minimum(f(1), st.rel_kkt)
+
+        # Adaptive CG tolerance (indirect mode): monotone tightening toward
+        # the ADMM residual scale, with a forced 1/cg_tol_reduction cut
+        # whenever both residuals stall; only at check epochs.
+        if do_check:
+            candidate = settings.cg_tol_fraction * np.sqrt(st.pri_res * st.dua_res)
+            new_cg_tol = np.clip(np.minimum(st.cg_tol, candidate), settings.cg_eps_min, f(0.15))
+            stalled = (st.pri_res > f(0.5) * pri_before) and (st.dua_res > f(0.5) * dua_before)
+            if stalled:
+                reduction = np.maximum(settings.cg_tol_reduction, f(1))
+                new_cg_tol = np.maximum(new_cg_tol / reduction, settings.cg_eps_min)
+            st.cg_tol = f(new_cg_tol)
+
+        epoch_idx = (st.it + epoch_len - 1) // max(epoch_len, 1)
+        if (settings.adaptive_rho and interval > 0 and epoch_idx % epochs_per_adapt == 0
+                and st.status == _UNSOLVED):
+            adapt_rho(data, settings, st, indirect)
+
+    # Post-loop bookkeeping (ref _osqp.py:1248-1275): if no terminal status,
+    # re-check exactly, then approximately (10x eps), else MAX_ITER_REACHED.
+    if st.status == _UNSOLVED and st.it >= iter_cap:
+        (st.status, st.pri_res, st.dua_res, st.obj_val, st.dual_obj_val,
+         st.rel_kkt) = _run_check(data, scal, settings, st)
+        if st.status == _UNSOLVED:
+            status, _, _, obj, _, _ = _run_check(data, scal, settings, st, approximate=True)
+            st.status = _MAX_ITER if status == _UNSOLVED else status
+            # keep the accurate residuals for reporting
+            if st.status in (_PRIM_INF_INACC, _DUAL_INF_INACC, _NON_CVX):
+                st.obj_val = obj
+
+    rho_est = f(_host(st, rho_estimate_fn(data, st.x, st.z, st.y, st.rho.rho))[0])
+
+    # Unscale the solution (ref _osqp.py:1098-1115)
+    infeasible = st.status in (_PRIM_INF, _PRIM_INF_INACC, _DUAL_INF, _DUAL_INF_INACC)
+    if infeasible:
+        x_out = torch.full_like(st.x, torch.nan)
+        y_out = torch.full_like(st.y, torch.nan) if m else st.y
+    else:
+        x_out = scal.D * st.x
+        y_out = scal.cinv * (scal.E * st.y) if m else st.y
+    unscaled = not settings.scaled_termination
+    prim_cert = scal.E * st.delta_y if (unscaled and m) else st.delta_y
+    dual_cert = scal.D * st.delta_x if unscaled else st.delta_x
+
+    return SolveResult(
+        x=x_out, y=y_out, prim_inf_cert=prim_cert, dual_inf_cert=dual_cert,
+        status=st.status, iters=st.it, pri_res=st.pri_res, dua_res=st.dua_res,
+        obj_val=st.obj_val, dual_obj_val=st.dual_obj_val,
+        duality_gap=f(st.obj_val - st.dual_obj_val), rho_estimate=rho_est,
+        rho_updates=st.rho_updates, cg_iters=st.cg_iters, host_syncs=st.host_syncs,
+        rel_kkt_error=st.rel_kkt, primdual_acc=st.primdual_acc,
+        iterates=Iterates(x=st.x, z=st.z, y=st.y), rho=st.rho, factor=st.factor,
+    )

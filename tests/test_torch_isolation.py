@@ -57,6 +57,15 @@ s = osqp_tpu_torch.BatchedOSQP(device='cpu')
 s.setup(P, q, A, -np.ones((B, m)), np.ones((B, m)), verbose=False)
 r = s.solve()
 assert (r.info.status_val == 1).all(), r.info.status_val
+import scipy.sparse as sp
+nb = 64
+Pb = sp.diags([np.full(nb, 2.0), np.full(nb - 1, -0.9), np.full(nb - 1, -0.9)], [0, 1, -1]).tocsc()
+Ab = (sp.eye(nb) + sp.diags([np.full(nb - 2, 0.5)], [-2], shape=(nb, nb))).tocsc()
+o = osqp_tpu_torch.OSQP(device='cpu', sparse=True)
+o.setup(P=Pb, q=rng.standard_normal(nb), A=Ab, l=-1.5 * np.ones(nb), u=1.5 * np.ones(nb),
+        verbose=False)
+assert o._solver._sparse_fmt_P == o._solver._sparse_fmt_A == 'dia'
+assert o.solve(raise_error=True).info.status == 'solved'
 assert not any(k == 'jax' or k.startswith(('jax.', 'osqp_tpu.')) for k in sys.modules
                if sys.modules[k] is not None)
 print('ok')
@@ -65,7 +74,8 @@ print('ok')
 
 def test_port_imports_and_solves_without_jax():
     """A fresh interpreter in which importing jax or osqp_tpu fails imports
-    every module of the port and solves a tiny batch on the CPU."""
+    every module of the port, solves a tiny batch and a small banded QP in
+    sparse mode on the CPU."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, '-c', _CHILD], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)

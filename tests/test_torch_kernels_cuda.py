@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from osqp_tpu_torch import BatchedOSQP
+from osqp_tpu_torch import OSQP, BatchedOSQP
 from osqp_tpu_torch import batch_shared as tbs
+from osqp_tpu_torch.ops import dia_matvec as tdm
 from osqp_tpu_torch.ops import shared_epoch as tse
 from osqp_tpu_torch.settings import OracleSettings, default_core_settings
 
@@ -87,4 +88,68 @@ def test_batched_osqp_on_cuda_matches_cpu_f64():
     for got, want in zip(runs['cuda'], runs['cpu']):
         np.testing.assert_array_equal(got.info.status_val, want.info.status_val)
         np.testing.assert_array_equal(got.info.iter, want.info.iter)
+        np.testing.assert_allclose(got.x, want.x, rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_dia_matvec_matches_plain_on_cuda():
+    """The DIA kernel against its plain version on the card: m_out != n_in,
+    more than 64 bands, offsets beyond both ends, both dtypes, and D = 0.
+    The kernel rounds each product and sum on its own in offset order, as
+    the plain version's separate kernels do, so the two agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    rng = np.random.default_rng(0)
+    m_out, n_in = 5003, 4001
+    offs = np.unique(np.concatenate([[0, -5002, 4000], rng.integers(-300, 300, 80)]))
+    assert offs.size > 64
+    for dtype in (torch.float32, torch.float64):
+        bands = torch.as_tensor(rng.standard_normal((offs.size, m_out)), dtype=dtype,
+                                device='cuda')
+        v = torch.as_tensor(rng.standard_normal(n_in), dtype=dtype, device='cuda')
+        off_t = torch.as_tensor(offs, dtype=torch.int32, device='cuda')
+        before = tdm.launches
+        got = tdm.dia_matvec(bands, off_t, v)
+        torch.cuda.synchronize()
+        assert tdm.launches == before + 1
+        want = tdm.dia_matvec_plain(bands, offs.tolist(), v)
+        assert torch.equal(got, want)
+    z = tdm.dia_matvec(torch.zeros((0, 7), device='cuda'),
+                       torch.zeros((0,), dtype=torch.int32, device='cuda'),
+                       torch.ones(5, device='cuda'))
+    assert z.shape == (7,) and not bool(z.any())
+    with pytest.raises(ValueError, match='int32'):
+        tdm.dia_matvec(bands, off_t.long(), v)
+
+
+@pytest.mark.cuda
+def test_sparse_osqp_on_cuda_matches_cpu_f64():
+    """OSQP in sparse mode on the card (DIA kernel) against the same solve on
+    the CPU (plain matvec), float64, cold and one warm step: statuses,
+    iteration counts and CG steps identical, x to 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    import scipy.sparse as sp
+
+    n = 3000
+    rng = np.random.default_rng(2)
+    P = sp.diags([np.full(n, 2.0), np.full(n - 1, -0.9), np.full(n - 1, -0.9)],
+                 [0, 1, -1]).tocsc()
+    A = (sp.eye(n) + sp.diags([np.full(n - 2, 0.5)], [-2], shape=(n, n))).tocsc()
+    q = rng.standard_normal(n)
+    runs, launched = {}, {}
+    for dev in ('cuda', 'cpu'):
+        before = tdm.launches
+        s = OSQP(dtype=torch.float64, device=dev, sparse=True)
+        s.setup(P=P, q=q, A=A, l=-1.5 * np.ones(n), u=1.5 * np.ones(n), verbose=False,
+                eps_abs=1e-6, eps_rel=1e-6)
+        r1 = s.solve(raise_error=True)
+        s.update(q=1.01 * q)
+        runs[dev] = (r1, s.solve(raise_error=True))
+        launched[dev] = tdm.launches - before
+    assert launched['cuda'] > 0 and launched['cpu'] == 0
+    for got, want in zip(runs['cuda'], runs['cpu']):
+        assert got.info.status == want.info.status == 'solved'
+        assert got.info.iter == want.info.iter
+        assert got.info.cg_iters == want.info.cg_iters
         np.testing.assert_allclose(got.x, want.x, rtol=0, atol=1e-9)
