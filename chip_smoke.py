@@ -9,10 +9,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build of every kernel from the sources in the checkout (nvcc, sm_90a),
    one nvcc per source, all started together;
 3. K1 (shared_epoch) against its plain PyTorch version on the card, one epoch
-   from the same state, at the batched path's shapes: f32 at B=4096, n=32,
-   m=48 (the batched condensed-MPC headline), f32 at B=1024, n=128, m=192,
-   and f64 at a ragged B=333, n=13, m=19; with the kernel's, the plain
-   version's and the unfused torch epoch's times;
+   from the same state, at the batched path's shapes: B=4096, n=32, m=48
+   (the batched condensed-MPC headline) in f32 and f64, f32 at B=1024,
+   n=128, m=192, and f64 at a ragged B=333, n=13, m=19; with each launch's
+   plan, the columns it iterates, and the kernel's (device time and CUDA
+   events over back-to-back launches), the plain version's and the unfused
+   torch epoch's device times;
 4. the batched main path end to end: BatchedOSQP setup, cold solve, then a
    10-step warm MPC rollout (update(q) with q + 0.01 noise, then solve) at
    the headline shape in f32, eps 1e-3.  Every instance must be solved, every
@@ -36,6 +38,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 It imports nothing of JAX or of the JAX package.  It needs the repository's
 ``osqp_tpu_torch`` beside it and a CUDA device.
+
+    python3 chip_smoke.py --k1 [--root DIR] [--plan TB,TC ...]
+
+builds K1 and runs only phase 3, with the ``osqp_tpu_torch`` of checkout DIR
+(to hold two trees against each other on one card) or at the given tile
+plans, and prints no result line.
 """
 
 import json
@@ -226,38 +234,83 @@ def epoch_bound_ms(B, n, m, itemsize, n_active, peak_flops, peak_bytes):
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes else 'bytes')
 
 
-def kernel_phase(card):
+def iterated_columns(status, tb):
+    """Columns in tiles of ``tb`` that hold an active column: the columns K1
+    iterates (a tile whose columns have all terminated skips the
+    iterations)."""
+    from osqp_tpu_torch.ops import shared_epoch as se
+
+    active = (status == se.UNSOLVED).cpu().numpy()
+    tile = np.arange(active.size) // tb
+    busy = np.zeros(tile[-1] + 1, dtype=bool)
+    np.logical_or.at(busy, tile, active)
+    return int(busy[tile].sum())
+
+
+def kernel_phase(card, plans=()):
+    """K1 against its plain version at the four shapes; each row with the
+    launch's plan, the columns it iterates, the kernel's device time at K=25
+    and at K=0 (merge, check and capture only), CUDA events over
+    back-to-back launches, and the plain and unfused epochs' device times.
+    ``plans``: (TB, TC) pairs to run at each shape instead of the planner's
+    choice (those that fit)."""
     from osqp_tpu_torch.ops import shared_epoch as se
 
     f32_peak, f64_peak, mem_peak = peaks(card)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     shapes = ((torch.float32, HEADLINE, 2e-4), (torch.float32, (1024, 128, 192), 2e-4),
-              (torch.float64, (333, 13, 19), 1e-9))
+              (torch.float64, (333, 13, 19), 1e-9), (torch.float64, HEADLINE, 1e-9))
     # tolerances: f32 sums run in another order and with FMA contraction in
     # the kernel; over 25 iterations of a nonexpansive map that stays within
     # a few 1e-6 of the state's scale, so 2e-4 leaves room; f64 the same at
     # 1e-9.
+    planner = getattr(se, 'plan_tile', None)
     for dtype, (B, n, m), tol in shapes:
         fixed, state, sc, ctx = epoch_inputs(B, n, m, dtype, seed=0)
-        got = se.shared_epoch(*fixed, *state, sc)
-        torch.cuda.synchronize()
+        item = torch.empty((), dtype=dtype).element_size()
         want = se.shared_epoch_plain(*fixed, *state, sc)
-        err = compare(got, want, tol)
         unf = unfused_epoch(fixed, state, sc, ctx)
         compare(unf, want, tol)
-        reps = 20
-        ms = cuda_ms(lambda: se.shared_epoch(*fixed, *state, sc), reps)
-        plain_ms = cuda_ms(lambda: se.shared_epoch_plain(*fixed, *state, sc), 5)
-        lib_ms = cuda_ms(lambda: unfused_epoch(fixed, state, sc, ctx), 5)
+        plain_ms = device_ms(lambda: se.shared_epoch_plain(*fixed, *state, sc), 5)
+        lib_ms = device_ms(lambda: unfused_epoch(fixed, state, sc, ctx), 5)
         n_active = int((state[6] == se.UNSOLVED).sum())
-        item = torch.empty((), dtype=dtype).element_size()
         bound, by = epoch_bound_ms(B, n, m, item, n_active,
                                    f32_peak if dtype == torch.float32 else f64_peak, mem_peak)
-        row = dict(dtype=str(dtype).replace('torch.', ''), B=B, n=n, m=m, active=n_active,
-                   max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bound, bound_by=by)
-        print('shared_epoch vs plain:', json.dumps(row), flush=True)
-        rows.append(row)
+        if planner is None:  # a checkout whose planner is pick_tile
+            cands = [dict(tb=se.pick_tile(n, m, B, item, n_sm))]
+        elif plans:
+            cands = []
+            for tb, tc in plans:
+                try:
+                    cands.append(se.make_plan(n, m, tb, tc, item)._asdict())
+                except ValueError:
+                    continue
+        else:
+            cands = [planner(n, m, B, item, n_sm)._asdict()]
+        for plan in cands:
+            if plans:
+                se.plan_tile = lambda *a, p=se.TilePlan(**plan): p
+            got = se.shared_epoch(*fixed, *state, sc)
+            torch.cuda.synchronize()
+            err = compare(got, want, tol)
+            reps = 20
+            kern = lambda: se.shared_epoch(*fixed, *state, sc)  # noqa: E731
+            sc0 = sc._replace(K=0)
+            ms = device_ms(kern, reps, name='shared_epoch_kernel')
+            ms_k0 = device_ms(lambda: se.shared_epoch(*fixed, *state, sc0), reps,
+                              name='shared_epoch_kernel')
+            events_ms = cuda_ms(kern, reps)
+            row = dict(dtype=str(dtype).replace('torch.', ''), B=B, n=n, m=m, active=n_active,
+                       iterated_cols=iterated_columns(state[6], plan['tb']), plan=plan,
+                       max_abs_err=err, tol=tol,
+                       state_err=max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])),
+                       ms=ms, ms_K0=ms_k0, events_ms=events_ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+            print('shared_epoch vs plain:', json.dumps(row), flush=True)
+            rows.append(row)
+        if plans:
+            se.plan_tile = planner
     return rows
 
 
@@ -639,13 +692,25 @@ def profile_sparse(run):
 
 
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description='Run the port on one NVIDIA GPU and check it.')
+    ap.add_argument('--k1', action='store_true',
+                    help='build K1 and run only its phase (3), then stop without a result line')
+    ap.add_argument('--root', type=Path, default=ROOT,
+                    help='the checkout whose osqp_tpu_torch to run (default: beside this file)')
+    ap.add_argument('--plan', action='append', default=[], metavar='TB,TC',
+                    help='with --k1: a tile width and micro-tile width to run instead of '
+                         "the planner's (repeatable)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device (torch.cuda.is_available() is False)', file=sys.stderr)
         return 1
-    if not (ROOT / 'osqp_tpu_torch' / 'ops' / 'csrc').is_dir():
-        print(f'chip_smoke: osqp_tpu_torch not found beside {__file__}', file=sys.stderr)
+    root = args.root.resolve()
+    if not (root / 'osqp_tpu_torch' / 'ops' / 'csrc').is_dir():
+        print(f'chip_smoke: osqp_tpu_torch not found in {root}', file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
     from osqp_tpu_torch.ops import _build
     from osqp_tpu_torch.ops import dia_matvec as dm
     from osqp_tpu_torch.ops import shared_epoch as se
@@ -657,6 +722,12 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f'python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}')
     print(card_line, flush=True)
+    if args.k1:
+        lib = _build.build('shared_epoch')
+        print(lib.with_suffix('.log').read_text().strip(), flush=True)
+        plans = [tuple(int(v) for v in p.split(',')) for p in args.plan]
+        print('k1:', json.dumps(kernel_phase(kind, plans)), flush=True)
+        return 0
 
     # 2. build every kernel from the checkout's sources, in parallel
     t0 = time.perf_counter()
@@ -723,7 +794,7 @@ def main():
         name='shared_epoch', route='cuda', source='osqp_tpu_torch/ops/csrc/shared_epoch.cu',
         replaces='osqp_tpu/ops/shared_epoch.py:75', launches=launches,
         max_abs_err=max(r['max_abs_err'] for r in rows), max_err=max(r['max_abs_err'] for r in rows),
-        ms=head['ms'], kernel_ms=head['ms'], plain_ms=head['plain_ms'],
+        ms=head['ms'], events_ms=head['events_ms'], plain_ms=head['plain_ms'],
         bound_ms=head['bound_ms'], bound_by=head['bound_by'], library_ms=head['library_ms'],
         shape=f"B={head['B']} n={head['n']} m={head['m']} {head['dtype']}",
     ), dict(

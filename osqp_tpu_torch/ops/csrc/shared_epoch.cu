@@ -18,21 +18,42 @@
 // B=4096, K=25) against one read and one write of the state, a few MB, so
 // the bound is the fp32 (or fp64) CUDA-core rate, not memory.
 //
-// Design: one block per tile of TB batch columns (TB a power of two up to 32,
-// chosen by the wrapper so that the tile fits shared memory and the grid
-// covers the SMs).  The block's slice of S, dX and dY lives in shared memory
-// for the whole epoch, so state crosses device memory once per epoch, not
-// once per iteration.  F, [P; A] and A' are read from global memory through
-// the read-only cache: they are shared by all blocks and stay in L2 (F is
-// 40 KB at n=32, m=48 but 640 KB at n=128, m=192, too large for shared
-// memory at every shape).  Each thread of the tile matmul owns one column and
-// four rows, so a shared-memory load of S feeds four FMAs.  The termination
-// check runs its matvecs as the same tile matmuls, then one thread per
-// column does the column reductions in order.  All arithmetic is plain IEEE
-// fp32 or fp64 on the CUDA cores (iter_prec 'highest').  Tiles whose columns
-// have all terminated skip the iterations.  Shared-memory rows have a stride
-// of TB + 1 so that column-wise and row-wise walks are free of bank
-// conflicts.  The ragged batch edge is masked; nothing is padded.
+// Design: one block per tile of TB batch columns (TB a power of two up to 32).
+// Everything the block touches within an epoch lives in shared memory (the
+// Layout below): its slice of the state S, dX, dY; the epoch-constant tiles
+// c0, L, U and Q and the vectors rho, 1/rho; and the iteration matrix F,
+// stored transposed (k-major, row stride LDW), so that the four rows a thread
+// needs at one k are contiguous and one vector load fetches them.  F stays
+// resident for the epoch where it fits beside the tiles (KS = n + 2m: 40 KB at
+// n=32, m=48 in f32); otherwise it is streamed through in slabs of KS rows of
+// k in every iteration (640 KB at n=128, m=192).  [P; A] and A' of the check
+// pass through the same buffer after the iterations.  The tiles and the
+// resident matrices arrive by cp.async, all of a phase's copies in flight at
+// once, so a phase costs one trip to memory.
+//
+// The product is register-tiled: each thread owns a 4 x TC micro-tile of
+// V (4 rows, TC columns), and for each k it makes one vector load of F' and
+// one of S, then 4 TC FMAs, summing k in order (at n=32, m=48 the iterates
+// then equal the plain version's bit for bit on an H100).  The block
+// has ceil((n+m)/4) * TB/TC threads, one micro-tile each, so the rows of V
+// are split evenly with no idle second pass.  The sums stay in registers;
+// after a barrier the owning thread applies the clip and the x, z, y updates
+// straight from them with vector accesses, rounding each product and sum on
+// its own as the plain version's elementwise kernels do, so V never goes to
+// shared memory in the iterations.  LDW is 16 bytes past a multiple of 128
+// bytes, so the transposing stores of F (one 16-byte store per thread,
+// consecutive k on consecutive threads) and the reads of F' (one k, adjacent
+// 16-byte chunks across the warp) are free of bank conflicts; the state
+// tiles have row stride TB, since every walk over them is
+// column-contiguous.
+//
+// The termination check runs its matvecs with the same routine.  Its column
+// reductions are split into independent tasks (a thread per task and
+// column), each in feature order, and one thread per column combines them.
+// All arithmetic is plain IEEE fp32 or fp64 on the CUDA cores (iter_prec
+// 'highest'); the products and the check's sums may be contracted to FMA.
+// Tiles whose columns have all terminated skip the iterations.  The ragged
+// batch edge is masked; nothing is padded in device memory.
 
 #include <cuda_runtime.h>
 
@@ -41,7 +62,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 384;
 constexpr int kSolved = 1;
 constexpr int kPinf = 3;
 constexpr int kDinf = 5;
@@ -61,6 +82,15 @@ template <> struct Limits<double> {
 };
 
 template <typename T> __device__ __forceinline__ T absv(T x) { return Limits<T>::abs(x); }
+
+// Products, sums and differences rounded on their own (never contracted to
+// FMA), as the plain version's separate elementwise kernels round them.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 
 template <typename T> struct Scalars {
   T alpha, eps_abs, eps_rel, eps_pinf, eps_dinf, c, cinv;
@@ -86,96 +116,313 @@ template <typename T> __device__ __forceinline__ T nmin(T a, T b) {
   return (a != a || a < b) ? a : b;
 }
 
-// Out[r, c] = sum_k W[r, k] In[k, c] for r < R, over the block's TB columns.
-// W is (R, Kd) row-major in global memory; In and Out are shared-memory tiles
-// with row stride LD.  Each thread owns column c and rows r0..r0+3.
+// Row stride of the staged F' in elements: the rows of V rounded up to 4,
+// then up to 16 bytes past a multiple of 128 bytes (see the design note).
+__host__ __device__ inline int w_stride(int nm, int size) {
+  const int r4 = (nm + 3) / 4 * 4;
+  const int mod = 128 / size, want = 16 / size;
+  return r4 + ((want - r4 % mod) % mod + mod) % mod;
+}
+
+// Shared-memory layout of one block, in elements of T; each region is
+// rounded up to 16 bytes.  smem_bytes in ops/shared_epoch.py mirrors it (and
+// its test reads the region list below from this file).
+constexpr int kRegions = 13;
+struct Layout {
+  int off[kRegions + 1];
+  __host__ __device__ Layout(int n, int m, int TB, int KS, int LDW, int size) {
+    const int N2 = n + 2 * m, nm = n + m;
+    const int sizes[kRegions] = {
+        KS * LDW,  // W: F' k-major (resident or one slab), then [P; A]' and A''
+        N2 * TB,   // S = [x; z; y]
+        nm * TB,   // V: [P; A] x, then [P; A] dx (check only)
+        n * TB,    // T: A' y, then A' dy (check only)
+        n * TB,    // dX
+        m * TB,    // dY
+        nm * TB,   // c0
+        m * TB,    // L
+        m * TB,    // U
+        n * TB,    // Q
+        m,         // rho
+        m,         // 1 / rho
+        16 * TB,   // per-column partial results of the check
+    };
+    const int align = 16 / size;
+    off[0] = 0;
+    for (int i = 0; i < kRegions; ++i) off[i + 1] = off[i] + (sizes[i] + align - 1) / align * align;
+  }
+  __host__ __device__ int total() const { return off[kRegions]; }
+};
+
+// Vector loads and stores of 1, 2 or 4 consecutive elements (16-byte aligned
+// for 4 floats or 2 doubles).
+__device__ __forceinline__ void ld(const float* p, float (&o)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
+}
+__device__ __forceinline__ void ld(const float* p, float (&o)[2]) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  o[0] = t.x; o[1] = t.y;
+}
+__device__ __forceinline__ void ld(const float* p, float (&o)[1]) { o[0] = *p; }
+__device__ __forceinline__ void ld(const double* p, double (&o)[4]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+__device__ __forceinline__ void ld(const double* p, double (&o)[2]) {
+  const double2 t = *reinterpret_cast<const double2*>(p);
+  o[0] = t.x; o[1] = t.y;
+}
+__device__ __forceinline__ void ld(const double* p, double (&o)[1]) { o[0] = *p; }
+__device__ __forceinline__ void st(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st(float* p, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void st(float* p, const float (&v)[1]) { *p = v[0]; }
+__device__ __forceinline__ void st(double* p, const double (&v)[4]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
+}
+__device__ __forceinline__ void st(double* p, const double (&v)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+__device__ __forceinline__ void st(double* p, const double (&v)[1]) { *p = v[0]; }
+
+// Asynchronous copy of one element from global to shared memory (cp.async):
+// a thread issues any number of them and waits once, so all of a phase's
+// loads cross memory together.  With `valid` false it reads nothing and
+// writes a zero.
 template <typename T>
-__device__ void tile_matmul(const T* __restrict__ W, int R, int Kd,
-                            const T* In, T* Out, int TB, int LD) {
-  const int c = threadIdx.x % TB;
-  const int g = threadIdx.x / TB;
-  const int G = blockDim.x / TB;
-  for (int r0 = 4 * g; r0 < R; r0 += 4 * G) {
-    // rows past R re-read row R-1 and are not stored
-    const T* w0 = W + (size_t)r0 * Kd;
-    const T* w1 = W + (size_t)min(r0 + 1, R - 1) * Kd;
-    const T* w2 = W + (size_t)min(r0 + 2, R - 1) * Kd;
-    const T* w3 = W + (size_t)min(r0 + 3, R - 1) * Kd;
-    T a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-    for (int k = 0; k < Kd; ++k) {
-      const T s = In[k * LD + c];
-      a0 += __ldg(w0 + k) * s;
-      a1 += __ldg(w1 + k) * s;
-      a2 += __ldg(w2 + k) * s;
-      a3 += __ldg(w3 + k) * s;
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(T)), "r"(valid ? (int)sizeof(T) : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A walk over the (rows, cols) index grid in steps of blockDim.x from this
+// thread's first index, without a division per step.
+struct GridWalk {
+  int row, col, drow, dcol, cols;
+  __device__ GridWalk(int cols_)
+      : row(threadIdx.x / cols_), col(threadIdx.x % cols_), drow(blockDim.x / cols_),
+        dcol(blockDim.x % cols_), cols(cols_) {}
+  __device__ void next() {
+    row += drow;
+    col += dcol;
+    if (col >= cols) {
+      col -= cols;
+      ++row;
     }
-    Out[r0 * LD + c] = a0;
-    if (r0 + 1 < R) Out[(r0 + 1) * LD + c] = a1;
-    if (r0 + 2 < R) Out[(r0 + 2) * LD + c] = a2;
-    if (r0 + 3 < R) Out[(r0 + 3) * LD + c] = a3;
+  }
+};
+
+// sW[k, r] = W[r, k0 + k] for k < ks and r < 4 ceil(R/4) (zero past R): W is
+// (R, Kd) row-major in global memory.  Consecutive threads take consecutive
+// k, so the global reads are coalesced; each writes 4-row chunks, two at a
+// time with their 8 loads in flight.  Used for the slabs of F, every
+// iteration.
+template <typename T>
+__device__ void stage(const T* __restrict__ W, int R, int Kd, int k0, int ks, T* sW,
+                      int LDW) {
+  const int G = (R + 3) / 4;
+  GridWalk p(ks);
+  while (p.row < G) {
+    GridWalk q = p;
+    q.next();
+    T w[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r0 = 4 * p.row + j, r1 = 4 * q.row + j;
+      w[0][j] = r0 < R ? __ldg(W + (size_t)r0 * Kd + k0 + p.col) : T(0);
+      w[1][j] = r1 < R ? __ldg(W + (size_t)r1 * Kd + k0 + q.col) : T(0);
+    }
+    st(sW + p.col * LDW + 4 * p.row, w[0]);
+    if (q.row < G) st(sW + q.col * LDW + 4 * q.row, w[1]);
+    p = q;
+    p.next();
   }
 }
 
-// Copy rows [0, rows) of a (rows, B) global array into a shared tile, zero
-// past the ragged edge; given `flag`, only the valid columns whose flag is 0.
+// The same staging of all of W (k0 = 0, ks = Kd) by asynchronous element
+// copies: for matrices staged once per epoch, whose loads then travel with
+// the tiles'.  Complete after cp_async_wait and a barrier.
+template <typename T>
+__device__ void stage_async(const T* __restrict__ W, int R, int Kd, T* sW, int LDW) {
+  const int R4 = (R + 3) / 4 * 4;
+  for (GridWalk p(Kd); p.row < R4; p.next()) {
+    const bool ok = p.row < R;
+    cp_async(sW + p.col * LDW + p.row, ok ? W + (size_t)p.row * Kd + p.col : W, ok);
+  }
+}
+
+// acc[i][j] = sum_k W[4g + i, k] In[k, TC tc + j]: W (R, Kd) in global
+// memory, passed through sW in slabs of KS rows of k (or, given `staged`,
+// already all in sW); In a shared tile of row stride TB.  Threads whose rows
+// start at or past R compute nothing.  Every thread of the block calls it.
+template <typename T, int TC>
+__device__ void tile_product(const T* __restrict__ W, int R, int Kd, const T* In, int TB,
+                             T* sW, int KS, int LDW, bool staged, int g, int tc,
+                             T (&acc)[4][TC]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < TC; ++j) acc[i][j] = T(0);
+  const bool mine = 4 * g < R;
+  for (int k0 = 0; k0 < Kd; k0 += KS) {
+    const int ks = min(KS, Kd - k0);
+    if (!staged) {
+      __syncthreads();  // the previous slab (or user of sW) is done
+      stage(W, R, Kd, k0, ks, sW, LDW);
+      __syncthreads();
+    }
+    if (!mine) continue;
+    const T* w_p = sW + 4 * g;
+    const T* s_p = In + (size_t)k0 * TB + TC * tc;
+#pragma unroll 4
+    for (int k = 0; k < ks; ++k) {
+      T w[4], s[TC];
+      ld(w_p + k * LDW, w);
+      ld(s_p + k * TB, s);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < TC; ++j) acc[i][j] += w[i] * s[j];
+    }
+  }
+}
+
+// Out[r, c] = acc for the thread's rows r < R, into a tile of row stride TB.
+template <typename T, int TC>
+__device__ void store_acc(const T (&acc)[4][TC], T* Out, int R, int TB, int g, int tc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * g + i;
+    if (r >= R) break;
+#pragma unroll
+    for (int j = 0; j < TC; ++j) Out[r * TB + TC * tc + j] = acc[i][j];
+  }
+}
+
+// log2 of a power of two (TB is one), so that tile walks shift and mask
+// rather than divide.
+__device__ __forceinline__ int log2i(int p) { return __ffs(p) - 1; }
+
+// Start copying rows [0, rows) of a (rows, B) global array into a shared
+// tile, zero past the ragged edge; given `flag`, only the valid columns
+// whose flag is 0.  Complete after cp_async_wait and a barrier.
 template <typename T>
 __device__ void load_tile(const T* __restrict__ G, int rows, int B, int col0,
-                          int ncol, T* sm, int TB, int LD, const int* flag) {
+                          int ncol, T* sm, int TB, const int* flag) {
   for (int i = threadIdx.x; i < rows * TB; i += blockDim.x) {
-    const int f = i / TB, c = i % TB;
+    const int f = i >> log2i(TB), c = i & (TB - 1);
     if (flag != nullptr && (c >= ncol || flag[c])) continue;
-    sm[f * LD + c] = c < ncol ? G[(size_t)f * B + col0 + c] : T(0);
+    cp_async(sm + i, c < ncol ? G + (size_t)f * B + col0 + c : G, c < ncol);
   }
 }
 
 template <typename T>
 __device__ void store_tile(T* __restrict__ G, int rows, int B, int col0,
-                           int ncol, const T* sm, int TB, int LD) {
+                           int ncol, const T* sm, int TB) {
   for (int i = threadIdx.x; i < rows * TB; i += blockDim.x) {
-    const int f = i / TB, c = i % TB;
-    if (c < ncol) G[(size_t)f * B + col0 + c] = sm[f * LD + c];
+    const int f = i >> log2i(TB), c = i & (TB - 1);
+    if (c < ncol) G[(size_t)f * B + col0 + c] = sm[i];
   }
 }
 
-// Capture: out = newly ? sm : old, per column.
+// out = in over the block's columns, global to global; each thread issues
+// kBatch loads before it stores any, so they cross memory together.
+constexpr int kBatch = 8;
 template <typename T>
-__device__ void capture_tile(T* __restrict__ G, const T* __restrict__ old,
-                             int rows, int B, int col0, int ncol, const T* sm,
-                             int TB, int LD, const int* newly) {
-  for (int i = threadIdx.x; i < rows * TB; i += blockDim.x) {
-    const int f = i / TB, c = i % TB;
-    if (c >= ncol) continue;
-    const size_t g = (size_t)f * B + col0 + c;
-    G[g] = newly[c] ? sm[f * LD + c] : old[g];
+__device__ void copy_cols(T* __restrict__ out, const T* __restrict__ in, int rows, int B,
+                          int col0, int ncol, int TB) {
+  const int N = rows * TB, step = blockDim.x;
+  for (int i0 = threadIdx.x; i0 < N; i0 += kBatch * step) {
+    T v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * step, f = i >> log2i(TB), c = i & (TB - 1);
+      if (i < N && c < ncol) v[u] = in[(size_t)f * B + col0 + c];
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * step, f = i >> log2i(TB), c = i & (TB - 1);
+      if (i < N && c < ncol) out[(size_t)f * B + col0 + c] = v[u];
+    }
   }
 }
 
+// Capture: out = sm for the newly terminated columns (the others already
+// hold their input values, from copy_cols).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-shared_epoch_kernel(int n, int m, int B, int TB, Scalars<T> sc, Args<T> a) {
+__device__ void capture_tile(T* __restrict__ G, int rows, int B, int col0, int ncol,
+                             const T* sm, int TB, const int* newly) {
+  for (int i = threadIdx.x; i < rows * TB; i += blockDim.x) {
+    const int f = i >> log2i(TB), c = i & (TB - 1);
+    if (c < ncol && newly[c]) G[(size_t)f * B + col0 + c] = sm[i];
+  }
+}
+
+template <typename T, int TC>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+shared_epoch_kernel(int n, int m, int B, int TB, int KS, Scalars<T> sc, Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_active[32];
   __shared__ int s_newly[32];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const int LD = TB + 1;
   const int nm = n + m, N2 = n + 2 * m;
-  T* sS = sm;             // (n+2m, LD)  [x; z; y]
-  T* sV = sS + N2 * LD;   // (n+m, LD)   F S, then [P; A] x, then [P; A] dx
-  T* sdX = sV + nm * LD;  // (n, LD)
-  T* sdY = sdX + n * LD;  // (m, LD)
-  T* sT = sdY + m * LD;   // (n, LD)     A' y, then A' dy
+  const int LDW = w_stride(nm, sizeof(T));
+  const Layout lay(n, m, TB, KS, LDW, sizeof(T));
+  T* sW = sm + lay.off[0];
+  T* sS = sm + lay.off[1];
+  T* sV = sm + lay.off[2];
+  T* sT = sm + lay.off[3];
+  T* sdX = sm + lay.off[4];
+  T* sdY = sm + lay.off[5];
+  T* sC0 = sm + lay.off[6];
+  T* sL = sm + lay.off[7];
+  T* sU = sm + lay.off[8];
+  T* sQ = sm + lay.off[9];
+  T* sRho = sm + lay.off[10];
+  T* sRhoinv = sm + lay.off[11];
+  T* sRed = sm + lay.off[12];
   const int col0 = blockIdx.x * TB;
   const int ncol = min(TB, B - col0);
   const int tid = threadIdx.x;
+  const int tc = tid % (TB / TC), g = tid / (TB / TC);
+  const bool resident = KS >= N2;
 
+  // ---- 0. the block's tiles into shared memory, all loads in flight at once ----
   int my_active = 0;
   if (tid < TB) {
     my_active = tid < ncol && a.status[col0 + tid] == kUnsolved;
     s_active[tid] = my_active;
   }
-  load_tile(a.S, N2, B, col0, ncol, sS, TB, LD, (const int*)nullptr);
-  load_tile(a.dX, n, B, col0, ncol, sdX, TB, LD, (const int*)nullptr);
-  load_tile(a.dY, m, B, col0, ncol, sdY, TB, LD, (const int*)nullptr);
+  const int* all = nullptr;
+  load_tile(a.S, N2, B, col0, ncol, sS, TB, all);
+  load_tile(a.dX, n, B, col0, ncol, sdX, TB, all);
+  load_tile(a.dY, m, B, col0, ncol, sdY, TB, all);
+  load_tile(a.c0, nm, B, col0, ncol, sC0, TB, all);
+  load_tile(a.L, m, B, col0, ncol, sL, TB, all);
+  load_tile(a.U, m, B, col0, ncol, sU, TB, all);
+  load_tile(a.Q, n, B, col0, ncol, sQ, TB, all);
+  for (int j = tid; j < m; j += blockDim.x) {
+    cp_async(sRho + j, a.rho + j, true);
+    cp_async(sRhoinv + j, a.rhoinv + j, true);
+  }
+  // the captured state starts as the input's; newly terminated columns are
+  // overwritten at the end
+  copy_cols(a.fSo, a.fS, N2, B, col0, ncol, TB);
+  copy_cols(a.fdXo, a.fdX, n, B, col0, ncol, TB);
+  copy_cols(a.fdYo, a.fdY, m, B, col0, ncol, TB);
+  if (resident) stage_async(a.F, nm, N2, sW, LDW);
+  cp_async_wait();
   const int any_active = __syncthreads_or(my_active);
 
   // ---- 1. K ADMM iterations (affine form) ----
@@ -183,102 +430,162 @@ shared_epoch_kernel(int n, int m, int B, int TB, Scalars<T> sc, Args<T> a) {
     const T alpha = sc.alpha;
     const T one_m_alpha = T(1) - alpha;
     for (int it = 0; it < sc.K; ++it) {
-      tile_matmul(a.F, nm, N2, sS, sV, TB, LD);
-      __syncthreads();
-      for (int i = tid; i < n * TB; i += blockDim.x) {
-        const int f = i / TB, c = i % TB;
-        if (c >= ncol) continue;
-        const T x = sS[f * LD + c];
-        const T xt = sV[f * LD + c] + a.c0[(size_t)f * B + col0 + c];
-        const T xn = alpha * xt + one_m_alpha * x;
-        sS[f * LD + c] = xn;
-        sdX[f * LD + c] = xn - x;
-      }
-      for (int i = tid; i < m * TB; i += blockDim.x) {
-        const int j = i / TB, c = i % TB;
-        if (c >= ncol) continue;
-        const size_t g = (size_t)j * B + col0 + c;
-        const T pz = sV[(n + j) * LD + c] + a.c0[(size_t)(n + j) * B + col0 + c];
-        const T zn = nmin(nmax(pz, a.L[g]), a.U[g]);
-        const T y = sS[(nm + j) * LD + c];
-        const T yn = y + a.rho[j] * (pz - a.rhoinv[j] * y - zn);
-        sS[(n + j) * LD + c] = zn;
-        sS[(nm + j) * LD + c] = yn;
-        sdY[j * LD + c] = yn - y;
+      T acc[4][TC];
+      tile_product<T, TC>(a.F, nm, N2, sS, TB, sW, KS, LDW, resident, g, tc, acc);
+      __syncthreads();  // every read of S is done; the owners update it
+      // each owner updates its 4 rows, TC columns at a time with vector
+      // accesses; the columns past the ragged edge hold zeros and stay so
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * g + i;
+        if (r >= nm) break;
+        const int o = r * TB + TC * tc;
+        T c0v[TC];
+        ld(sC0 + o, c0v);
+        if (r < n) {
+          T x[TC], xn[TC], dx[TC];
+          ld(sS + o, x);
+#pragma unroll
+          for (int jc = 0; jc < TC; ++jc) {
+            const T v = add_rn(acc[i][jc], c0v[jc]);
+            xn[jc] = add_rn(mul_rn(alpha, v), mul_rn(one_m_alpha, x[jc]));
+            dx[jc] = sub_rn(xn[jc], x[jc]);
+          }
+          st(sS + o, xn);
+          st(sdX + o, dx);
+        } else {
+          const int j = r - n, oj = j * TB + TC * tc, oy = (nm + j) * TB + TC * tc;
+          const T rho = sRho[j], rhoinv = sRhoinv[j];
+          T l[TC], u[TC], y[TC], zn[TC], yn[TC], dy[TC];
+          ld(sL + oj, l);
+          ld(sU + oj, u);
+          ld(sS + oy, y);
+#pragma unroll
+          for (int jc = 0; jc < TC; ++jc) {
+            const T v = add_rn(acc[i][jc], c0v[jc]);
+            zn[jc] = nmin(nmax(v, l[jc]), u[jc]);
+            yn[jc] = add_rn(y[jc], mul_rn(rho, sub_rn(sub_rn(v, mul_rn(rhoinv, y[jc])), zn[jc])));
+            dy[jc] = sub_rn(yn[jc], y[jc]);
+          }
+          st(sS + o, zn);
+          st(sS + oy, yn);
+          st(sdY + oj, dy);
+        }
       }
       __syncthreads();
     }
   }
 
   // ---- 2. merge: terminated columns take their input state back ----
-  load_tile(a.S, N2, B, col0, ncol, sS, TB, LD, s_active);
-  load_tile(a.dX, n, B, col0, ncol, sdX, TB, LD, s_active);
-  load_tile(a.dY, m, B, col0, ncol, sdY, TB, LD, s_active);
-  __syncthreads();
+  load_tile(a.S, N2, B, col0, ncol, sS, TB, s_active);
+  load_tile(a.dX, n, B, col0, ncol, sdX, TB, s_active);
+  load_tile(a.dY, m, B, col0, ncol, sdY, TB, s_active);
 
   // ---- 3. termination check ----
-  tile_matmul(a.CH, nm, n, sS, sV, TB, LD);        // [P x; A x]
-  tile_matmul(a.At, n, m, sS + nm * LD, sT, TB, LD);  // A' y
+  // [P; A]' and A'' pass through sW: both at once, for all four products,
+  // where they fit (n + m <= KS, always so when F is resident); otherwise
+  // each product streams its own slabs.
+  const bool check_staged = n + m <= KS;
+  T* sCH = sW;
+  T* sAt = check_staged ? sW + n * LDW : sW;
+  if (check_staged) {  // sW is free: the iterations ended at a barrier
+    stage_async(a.CH, nm, n, sCH, LDW);
+    stage_async(a.At, n, m, sAt, LDW);
+  }
+  cp_async_wait();  // the merge
+  if (check_staged) __syncthreads();  // (streamed products begin at one)
+  {
+    T acc[4][TC];
+    tile_product<T, TC>(a.CH, nm, n, sS, TB, sCH, KS, LDW, check_staged, g, tc, acc);  // [P x; A x]
+    store_acc<T, TC>(acc, sV, nm, TB, g, tc);
+    tile_product<T, TC>(a.At, n, m, sS + nm * TB, TB, sAt, KS, LDW, check_staged, g, tc, acc);  // A' y
+    store_acc<T, TC>(acc, sT, n, TB, g, tc);
+  }
   __syncthreads();
 
+  // The column reductions, split into independent tasks (one thread per
+  // task and column), each summing in feature order; their results meet in
+  // sRed (slot s of column c at sRed[s * TB + c]) and one thread per column
+  // combines them.
   const T eps = Limits<T>::eps();
   const T loose = T(1e30 * 1e-4);
   const T infty = T(1e30);
   const bool unscaled = sc.unscaled != 0;
   const T cinv = sc.cinv;
+  const T* X = sS;
+  const T* Z = sS + n * TB;
+  const T* Y = sS + nm * TB;
+  const T* PX = sV;
+  const T* AX = sV + n * TB;
+  for (int t = tid; t < 3 * TB; t += blockDim.x) {
+    const int task = t >> log2i(TB), c = t & (TB - 1);
+    if (c >= ncol) continue;
+    T* red = sRed + c;
+    if (task == 0) {
+      T dmax = 0, quad2 = 0, qx = 0, xx = 0, atym = 0, pxm = 0, qm = 0;
+      for (int i = 0; i < n; ++i) {
+        const T x = X[i * TB + c], px = PX[i * TB + c], aty = sT[i * TB + c];
+        const T q = sQ[i * TB + c];
+        const T dinv = __ldg(a.Dinv + i);
+        const T dv = px + q + aty;
+        dmax = nmax(dmax, absv(unscaled ? dinv * dv : dv));
+        quad2 += x * px;
+        qx += q * x;
+        xx += x * x;
+        atym = nmax(atym, absv(unscaled ? dinv * aty : aty));
+        pxm = nmax(pxm, absv(unscaled ? dinv * px : px));
+        qm = nmax(qm, absv(unscaled ? dinv * q : q));
+      }
+      red[0] = dmax; red[TB] = quad2; red[2 * TB] = qx; red[3 * TB] = xx;
+      red[4 * TB] = atym; red[5 * TB] = pxm; red[6 * TB] = qm;
+    } else if (task == 1) {
+      T ymax = 0;
+      for (int j = 0; j < m; ++j) {
+        ymax = nmax(ymax, absv(cinv * (__ldg(a.E + j) * Y[j * TB + c])));
+      }
+      const T y_tol = eps * ymax;
+      T sum_p = 0, sum_n = 0, mag_p = 0, mag_n = 0;
+      for (int j = 0; j < m; ++j) {
+        const T einv = __ldg(a.Einv + j);
+        T yu = cinv * (__ldg(a.E + j) * Y[j * TB + c]);
+        yu = absv(yu) > y_tol ? yu : T(0);
+        const T lu = einv * sL[j * TB + c], uu = einv * sU[j * TB + c];
+        const T sp = uu < loose ? uu * nmax(yu, T(0)) : T(0);
+        const T sn = lu > -loose ? lu * nmin(yu, T(0)) : T(0);
+        sum_p += sp;
+        sum_n += sn;
+        mag_p += absv(sp);
+        mag_n += absv(sn);
+      }
+      red[7 * TB] = sum_p; red[8 * TB] = sum_n; red[9 * TB] = mag_p; red[10 * TB] = mag_n;
+    } else {
+      T pmax = 0, axm = 0, zm = 0;
+      for (int j = 0; j < m; ++j) {
+        const T einv = __ldg(a.Einv + j);
+        const T ax = AX[j * TB + c], z = Z[j * TB + c];
+        const T pv = ax - z;
+        pmax = nmax(pmax, absv(unscaled ? einv * pv : pv));
+        axm = nmax(axm, absv(unscaled ? einv * ax : ax));
+        zm = nmax(zm, absv(unscaled ? einv * z : z));
+      }
+      red[11 * TB] = pmax; red[12 * TB] = axm; red[13 * TB] = zm;
+    }
+  }
+  __syncthreads();
+
   const int c = tid;
   const int col = col0 + c;
   T pri = 0, dua = 0, obj = 0, dobj = 0, gap_noise = 0;
   bool pri_check = false, dua_check = false, noncvx = false;
-
   if (c < ncol) {
-    const T* X = sS;
-    const T* Z = sS + n * LD;
-    const T* Y = sS + nm * LD;
-    const T* PX = sV;
-    const T* AX = sV + n * LD;
-    T dmax = 0, quad2 = 0, qx = 0, xx = 0, atym = 0, pxm = 0, qm = 0;
-    for (int i = 0; i < n; ++i) {
-      const T x = X[i * LD + c], px = PX[i * LD + c], aty = sT[i * LD + c];
-      const T q = a.Q[(size_t)i * B + col];
-      const T dinv = a.Dinv[i];
-      const T dv = px + q + aty;
-      dmax = nmax(dmax, absv(unscaled ? dinv * dv : dv));
-      quad2 += x * px;
-      qx += q * x;
-      xx += x * x;
-      atym = nmax(atym, absv(unscaled ? dinv * aty : aty));
-      pxm = nmax(pxm, absv(unscaled ? dinv * px : px));
-      qm = nmax(qm, absv(unscaled ? dinv * q : q));
-    }
+    const T* red = sRed + c;
+    const T dmax = red[0], quad2 = red[TB], qx = red[2 * TB], xx = red[3 * TB];
+    const T atym = red[4 * TB], pxm = red[5 * TB], qm = red[6 * TB];
+    const T sum_p = red[7 * TB], sum_n = red[8 * TB], mag_p = red[9 * TB], mag_n = red[10 * TB];
+    const T pmax = red[11 * TB], axm = red[12 * TB], zm = red[13 * TB];
     dua = unscaled ? cinv * dmax : dmax;
     const T quad = T(0.5) * quad2;
     obj = (quad + qx) * cinv;
-
-    T ymax = 0;
-    for (int j = 0; j < m; ++j) {
-      ymax = nmax(ymax, absv(cinv * (a.E[j] * Y[j * LD + c])));
-    }
-    const T y_tol = eps * ymax;
-    T pmax = 0, axm = 0, zm = 0, sum_p = 0, sum_n = 0, mag_p = 0, mag_n = 0;
-    for (int j = 0; j < m; ++j) {
-      const T einv = a.Einv[j];
-      const T ax = AX[j * LD + c], z = Z[j * LD + c];
-      const T pv = ax - z;
-      pmax = nmax(pmax, absv(unscaled ? einv * pv : pv));
-      axm = nmax(axm, absv(unscaled ? einv * ax : ax));
-      zm = nmax(zm, absv(unscaled ? einv * z : z));
-      T yu = cinv * (a.E[j] * Y[j * LD + c]);
-      yu = absv(yu) > y_tol ? yu : T(0);
-      const size_t g = (size_t)j * B + col;
-      const T lu = einv * a.L[g], uu = einv * a.U[g];
-      const T sp = uu < loose ? uu * nmax(yu, T(0)) : T(0);
-      const T sn = lu > -loose ? lu * nmin(yu, T(0)) : T(0);
-      sum_p += sp;
-      sum_n += sn;
-      mag_p += absv(sp);
-      mag_n += absv(sn);
-    }
     pri = pmax;
     const bool noncvx_neg = (quad * cinv) < (T(-1e-12) * nmax(T(1), xx));
     if (noncvx_neg) pri = T(2e30);
@@ -294,46 +601,74 @@ shared_epoch_kernel(int n, int m, int B, int TB, Scalars<T> sc, Args<T> a) {
     pri_check = pri < eps_pri;
     dua_check = dua < eps_dua;
   }
+
+  {
+    // V, T and sRed are free: the column loops ended at the barrier above,
+    // and the products below begin or end at one before sRed is reused
+    T acc[4][TC];
+    tile_product<T, TC>(a.CH, nm, n, sdX, TB, sCH, KS, LDW, check_staged, g, tc, acc);  // [P dx; A dx]
+    store_acc<T, TC>(acc, sV, nm, TB, g, tc);
+    tile_product<T, TC>(a.At, n, m, sdY, TB, sAt, KS, LDW, check_staged, g, tc, acc);  // A' dy
+    store_acc<T, TC>(acc, sT, n, TB, g, tc);
+  }
   __syncthreads();
 
-  tile_matmul(a.CH, nm, n, sdX, sV, TB, LD);  // [P dx; A dx]
-  tile_matmul(a.At, n, m, sdY, sT, TB, LD);   // A' dy
+  for (int t = tid; t < 4 * TB; t += blockDim.x) {
+    const int task = t >> log2i(TB), c = t & (TB - 1);
+    if (c >= ncol) continue;
+    T* red = sRed + c;
+    if (task == 0) {  // primal infeasibility: ||dy|| and u'dy+ + l'dy-
+      T ndy = 0, lhs = 0;
+      for (int j = 0; j < m; ++j) {
+        const T dy = sdY[j * TB + c];
+        ndy = nmax(ndy, absv(unscaled ? __ldg(a.E + j) * dy : dy));
+        lhs += sU[j * TB + c] * nmax(dy, T(0)) + sL[j * TB + c] * nmin(dy, T(0));
+      }
+      red[0] = ndy; red[TB] = lhs;
+    } else if (task == 1) {  // ||A' dy||
+      T atdy = 0;
+      for (int i = 0; i < n; ++i) {
+        const T v = sT[i * TB + c];
+        atdy = nmax(atdy, absv(unscaled ? __ldg(a.Dinv + i) * v : v));
+      }
+      red[2 * TB] = atdy;
+    } else if (task == 2) {  // dual infeasibility: ||dx||, q'dx, ||P dx||
+      T ndx = 0, qdx = 0, pdx = 0;
+      for (int i = 0; i < n; ++i) {
+        const T dx = sdX[i * TB + c], v = sV[i * TB + c];
+        ndx = nmax(ndx, absv(unscaled ? __ldg(a.D + i) * dx : dx));
+        qdx += sQ[i * TB + c] * dx;
+        pdx = nmax(pdx, absv(unscaled ? __ldg(a.Dinv + i) * v : v));
+      }
+      red[3 * TB] = ndx; red[4 * TB] = qdx; red[5 * TB] = pdx;
+    } else {
+      // the largest A dx over finite upper bounds and the smallest over
+      // finite lower bounds, NaN entries skipped: "some entry crosses the
+      // bound" exactly as an entry-by-entry test
+      T hi = T(-INFINITY), lo = T(INFINITY);
+      for (int j = 0; j < m; ++j) {
+        T adx = sV[(n + j) * TB + c];
+        if (unscaled) adx = __ldg(a.Einv + j) * adx;
+        if (sU[j * TB + c] < loose) hi = fmax(hi, adx);
+        if (sL[j * TB + c] > -loose) lo = fmin(lo, adx);
+      }
+      red[6 * TB] = hi; red[7 * TB] = lo;
+    }
+  }
   __syncthreads();
 
   if (c < ncol) {
-    // primal infeasibility certificate
-    T ndy = 0, lhs = 0, atdy = 0;
-    for (int j = 0; j < m; ++j) {
-      const T dy = sdY[j * LD + c];
-      const size_t g = (size_t)j * B + col;
-      ndy = nmax(ndy, absv(unscaled ? a.E[j] * dy : dy));
-      lhs += a.U[g] * nmax(dy, T(0)) + a.L[g] * nmin(dy, T(0));
-    }
-    for (int i = 0; i < n; ++i) {
-      const T v = sT[i * LD + c];
-      atdy = nmax(atdy, absv(unscaled ? a.Dinv[i] * v : v));
-    }
+    const T* red = sRed + c;
+    const T ndy = red[0], lhs = red[TB], atdy = red[2 * TB];
+    const T ndx = red[3 * TB], qdx = red[4 * TB], pdx = red[5 * TB];
+    const T hi = red[6 * TB], lo = red[7 * TB];
     const T ep = sc.eps_pinf;
     const bool pinf = (ndy > ep) && (lhs < -ep * ndy) && (atdy < ep * ndy) && !pri_check;
 
-    // dual infeasibility certificate
-    T ndx = 0, qdx = 0, pdx = 0;
-    for (int i = 0; i < n; ++i) {
-      const T dx = sdX[i * LD + c], v = sV[i * LD + c];
-      ndx = nmax(ndx, absv(unscaled ? a.D[i] * dx : dx));
-      qdx += a.Q[(size_t)i * B + col] * dx;
-      pdx = nmax(pdx, absv(unscaled ? a.Dinv[i] * v : v));
-    }
     const T ed = sc.eps_dinf;
     const T cost_scale = unscaled ? sc.c : T(1);
     bool dinf = (ndx > ed) && (qdx < -cost_scale * ed * ndx) && (pdx < cost_scale * ed * ndx);
-    bool bad = false;
-    for (int j = 0; j < m; ++j) {
-      T adx = sV[(n + j) * LD + c];
-      if (unscaled) adx = a.Einv[j] * adx;
-      const size_t g = (size_t)j * B + col;
-      bad |= ((a.U[g] < loose) && (adx > ed * ndx)) || ((a.L[g] > -loose) && (adx < -ed * ndx));
-    }
+    const bool bad = (hi > ed * ndx) || (lo < -ed * ndx);
     dinf = dinf && !bad && !dua_check;
 
     const T gap = obj - dobj;
@@ -360,19 +695,39 @@ shared_epoch_kernel(int n, int m, int B, int TB, Scalars<T> sc, Args<T> a) {
   __syncthreads();
 
   // ---- 4. state out and capture of newly terminated columns ----
-  store_tile(a.So, N2, B, col0, ncol, sS, TB, LD);
-  store_tile(a.dXo, n, B, col0, ncol, sdX, TB, LD);
-  store_tile(a.dYo, m, B, col0, ncol, sdY, TB, LD);
-  capture_tile(a.fSo, a.fS, N2, B, col0, ncol, sS, TB, LD, s_newly);
-  capture_tile(a.fdXo, a.fdX, n, B, col0, ncol, sdX, TB, LD, s_newly);
-  capture_tile(a.fdYo, a.fdY, m, B, col0, ncol, sdY, TB, LD, s_newly);
+  store_tile(a.So, N2, B, col0, ncol, sS, TB);
+  store_tile(a.dXo, n, B, col0, ncol, sdX, TB);
+  store_tile(a.dYo, m, B, col0, ncol, sdY, TB);
+  capture_tile(a.fSo, N2, B, col0, ncol, sS, TB, s_newly);
+  capture_tile(a.fdXo, n, B, col0, ncol, sdX, TB, s_newly);
+  capture_tile(a.fdYo, m, B, col0, ncol, sdY, TB, s_newly);
+}
+
+template <typename T, int TC>
+cudaError_t start(int n, int m, int B, int TB, int KS, int threads, size_t smem,
+                  const Scalars<T>& sc, const Args<T>& a, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(shared_epoch_kernel<T, TC>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int grid = (B + TB - 1) / TB;
+  shared_epoch_kernel<T, TC><<<grid, threads, smem, stream>>>(n, m, B, TB, KS, sc, a);
+  return cudaGetLastError();
 }
 
 template <typename T>
-int launch(int n, int m, int B, int TB, int K, int unscaled, int check_dualgap,
-           const void* scal, void* const* p, void* stream) {
+int launch(int n, int m, int B, int TB, int TC, int KS, int smem, int K, int unscaled,
+           int check_dualgap, const void* scal, void* const* p, void* stream) {
   if (B == 0) return cudaSuccess;
-  if (TB < 1 || TB > 32 || (TB & (TB - 1)) != 0) return cudaErrorInvalidValue;
+  // the plan must be one this source can run, and its shared memory must be
+  // the Layout's (the planner and this file agree)
+  const int nm = n + m, N2 = n + 2 * m;
+  const int threads = (nm + 3) / 4 * (TB / max(TC, 1));
+  const Layout lay(n, m, TB, KS, w_stride(nm, sizeof(T)), sizeof(T));
+  const bool tc_ok = TC == 1 || TC == 2 || (TC == 4 && sizeof(T) == 4);
+  if (TB < 1 || TB > 32 || (TB & (TB - 1)) != 0 || !tc_ok || TC > TB || KS < 1 ||
+      KS > N2 || threads < TB || threads > kMaxThreads ||
+      (size_t)smem != (size_t)lay.total() * sizeof(T))
+    return cudaErrorInvalidValue;
   const T* s = static_cast<const T*>(scal);
   Scalars<T> sc{s[0], s[1], s[2], s[3], s[4], s[5], s[6], K, unscaled, check_dualgap};
   Args<T> a;
@@ -388,27 +743,25 @@ int launch(int n, int m, int B, int TB, int K, int unscaled, int check_dualgap,
   T** rows[] = {&a.pri_o, &a.dua_o, &a.obj_o, &a.dobj_o};
   for (T** q : rows) *q = static_cast<T*>(p[k++]);
 
-  const size_t smem = (size_t)(4 * n + 4 * m) * (TB + 1) * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(shared_epoch_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  const int grid = (B + TB - 1) / TB;
-  shared_epoch_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      n, m, B, TB, sc, a);
-  return cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (TC == 1) return start<T, 1>(n, m, B, TB, KS, threads, smem, sc, a, st);
+  if (TC == 2) return start<T, 2>(n, m, B, TB, KS, threads, smem, sc, a, st);
+  if constexpr (sizeof(T) == 4) return start<T, 4>(n, m, B, TB, KS, threads, smem, sc, a, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// C entry points.  Pointer order: scal (host: alpha, eps_abs, eps_rel,
+// C entry points.  The plan (TB batch columns per block, TC columns per
+// thread, KS rows of F' staged at a time, smem bytes) comes from plan_tile in
+// ops/shared_epoch.py.  Pointer order: scal (host: alpha, eps_abs, eps_rel,
 // eps_prim_inf, eps_dual_inf, c, cinv), then the 20 inputs F CH At rho_vec
 // rho_inv D Dinv E Einv c0 Q L U S dX dY fS fdX fdY status, then the 11
 // outputs S dX dY fS fdX fdY status pri dua obj dobj, then the stream.
 // Returns the cudaError_t of the launch.
 #define SHARED_EPOCH_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(int n, int m, int B, int TB, int K, int unscaled,         \
-                      int check_dualgap, const void* scal,                      \
+  extern "C" int NAME(int n, int m, int B, int TB, int TC, int KS, int smem,    \
+                      int K, int unscaled, int check_dualgap, const void* scal, \
                       void* F, void* CH, void* At, void* rho, void* rhoinv,     \
                       void* D, void* Dinv, void* E, void* Einv, void* c0,       \
                       void* Q, void* L, void* U, void* S, void* dX, void* dY,   \
@@ -419,7 +772,8 @@ int launch(int n, int m, int B, int TB, int K, int unscaled, int check_dualgap,
     void* const p[] = {F, CH, At, rho, rhoinv, D, Dinv, E, Einv, c0, Q, L, U,   \
                        S, dX, dY, fS, fdX, fdY, status, So, dXo, dYo, fSo,      \
                        fdXo, fdYo, status_o, pri, dua, obj, dobj};              \
-    return launch<T>(n, m, B, TB, K, unscaled, check_dualgap, scal, p, stream); \
+    return launch<T>(n, m, B, TB, TC, KS, smem, K, unscaled, check_dualgap,     \
+                     scal, p, stream);                                          \
   }
 
 SHARED_EPOCH_ENTRY(shared_epoch_f32, float)

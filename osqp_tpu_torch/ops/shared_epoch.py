@@ -25,6 +25,7 @@ launches only.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -45,6 +46,13 @@ launches = 0
 # Dynamic shared memory a block may take on Hopper (232,448 bytes), less room
 # for the kernel's static arrays.
 _SMEM_LIMIT = 232_448 - 1024
+# Threads per block at most (kMaxThreads) and rows of a thread's micro-tile,
+# as in csrc/shared_epoch.cu.
+_MAX_THREADS = 384
+_ROWS = 4
+# A block's fixed cost in columns of iteration work, for the planner; from
+# timings of K1 on an H100 at several tile widths (PERF.md, section 6).
+_BLOCK_COLS = 8
 
 
 class EpochScalars(NamedTuple):
@@ -219,27 +227,103 @@ def shared_epoch_plain(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
     return S, dX, dY, fS, fdX, fdY, status_o, pri, dua, obj, dobj
 
 
-def pick_tile(n: int, m: int, B: int, itemsize: int, n_sm: int) -> int:
-    """Batch columns per block: the largest power of two up to 32 whose
-    shared-memory tile fits and that still gives every SM a block; the
-    smallest fitting tile when even that leaves SMs idle.  Must agree with
-    ``smem_bytes`` in the .cu source."""
-    fits = [tb for tb in (32, 16, 8, 4, 2, 1) if smem_bytes(n, m, tb, itemsize) <= _SMEM_LIMIT]
-    if not fits:
+class TilePlan(NamedTuple):
+    """How the kernel cuts one epoch: ``tb`` batch columns per block,
+    ``threads`` per block, each owning a ``rows`` x ``tc`` micro-tile of
+    ``V = F S``, and F' staged ``ks`` rows of k at a time: all of it once per
+    epoch (``f_mode`` 'resident', ``ks = n + 2m``) or in slabs in every
+    iteration ('slab').  ``smem`` is the block's dynamic shared memory."""
+
+    tb: int
+    threads: int
+    rows: int
+    tc: int
+    ks: int
+    f_mode: str
+    smem: int
+
+
+def w_stride(nm: int, itemsize: int) -> int:
+    """Row stride (elements) of F' in shared memory: ``nm`` rounded up to 4,
+    then to 16 bytes past a multiple of 128 bytes (``w_stride`` in the .cu
+    source)."""
+    r4 = -(-nm // 4) * 4
+    mod, want = 128 // itemsize, 16 // itemsize
+    return r4 + (want - r4 % mod) % mod
+
+
+def smem_bytes(n: int, m: int, tb: int, ks: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block: the ``Layout`` of the .cu source
+    (F' staged ``ks`` rows deep; the state S, dX, dY; V and T of the check;
+    the epoch-constant c0, L, U, Q and rho, 1/rho; 16 partial results per
+    column of the check), each region rounded up to 16 bytes."""
+    nm, N2 = n + m, n + 2 * m
+    sizes = (ks * w_stride(nm, itemsize), N2 * tb, nm * tb, n * tb, n * tb, m * tb,
+             nm * tb, m * tb, m * tb, n * tb, m, m, 16 * tb)
+    align = 16 // itemsize
+    return sum(-(-s // align) * align for s in sizes) * itemsize
+
+
+def make_plan(n: int, m: int, tb: int, tc: int, itemsize: int) -> TilePlan:
+    """The plan for a given block width and micro-tile: F resident when it
+    fits beside the tiles, else the deepest slab (a multiple of 8 rows of k)
+    that does.  Raises ``ValueError`` when not even an 8-deep slab fits, or
+    when the kernel cannot run the micro-tile (more than 384 threads, or
+    fewer threads than batch columns)."""
+    N2 = n + 2 * m
+    threads = -(-(n + m) // _ROWS) * (tb // tc)
+    if not (tc <= tb and tb <= threads <= _MAX_THREADS):
+        raise ValueError(f'shared_epoch: {tb} columns per block in micro-tiles {_ROWS} x {tc} '
+                         f'take {threads} threads; the kernel runs {tb} to {_MAX_THREADS}')
+    if smem_bytes(n, m, tb, N2, itemsize) <= _SMEM_LIMIT:
+        ks = N2
+    else:
+        per_k = w_stride(n + m, itemsize) * itemsize
+        ks = (_SMEM_LIMIT - smem_bytes(n, m, tb, 0, itemsize)) // per_k // 8 * 8
+        if ks < 8:
+            raise ValueError(
+                f'shared_epoch: n={n}, m={m} needs {smem_bytes(n, m, tb, 8, itemsize)} bytes '
+                f'of shared memory at {tb} batch columns per block (limit {_SMEM_LIMIT})')
+    return TilePlan(tb, threads, _ROWS, tc, ks, 'resident' if ks == N2 else 'slab',
+                    smem_bytes(n, m, tb, ks, itemsize))
+
+
+@functools.lru_cache(maxsize=64)
+def plan_tile(n: int, m: int, B: int, itemsize: int, n_sm: int) -> TilePlan:
+    """The kernel's plan.  Block width: the power of two up to 32 whose tile
+    fits and that least loads the busiest SM (its blocks times each block's
+    columns plus a fixed cost per block), the wider one on a tie.
+    Micro-tile columns: the widest (4 in f32, 2 in f64) that still gives the
+    block at least eight warps; the narrowest when none does.  Threads stay
+    within the kernel's 384, and at least one per batch column of the tile
+    (the check's column loops)."""
+    n_groups = -(-(n + m) // _ROWS)
+    if smem_bytes(n, m, 1, 8, itemsize) > _SMEM_LIMIT:
         raise ValueError(
-            f'shared_epoch: n={n}, m={m} needs {smem_bytes(n, m, 1, itemsize)} bytes of '
-            f'shared memory even at one batch column per block (limit {_SMEM_LIMIT})'
-        )
-    for tb in fits:
-        if -(-B // tb) >= n_sm:
-            return tb
-    return fits[-1]
+            f'shared_epoch: n={n}, m={m} needs {smem_bytes(n, m, 1, 8, itemsize)} bytes of '
+            f'shared memory even at one batch column per block (limit {_SMEM_LIMIT})')
+    if n_groups > _MAX_THREADS:
+        raise ValueError(f'shared_epoch: n + m = {n + m} exceeds {_ROWS * _MAX_THREADS} '
+                         f'(one {_ROWS}-row micro-tile per thread, {_MAX_THREADS} threads)')
+    widths = (4, 2, 1) if itemsize == 4 else (2, 1)
+    plans = []
+    for tb in (32, 16, 8, 4, 2, 1):
+        runnable = []
+        for tc in widths:
+            try:
+                runnable.append(make_plan(n, m, tb, tc, itemsize))
+            except ValueError:  # TB = 1, TC = 1 always runs (checked above)
+                continue
+        if runnable:
+            plans.append(next((p for p in runnable if p.threads >= 256), runnable[-1]))
+    # the busiest SM's work, with blocks dealt out evenly: its blocks times
+    # each block's columns, plus a fixed cost per block (loads, barriers, the
+    # check's serial steps) worth about _BLOCK_COLS columns
+    def busiest_sm(p):
+        blocks = -(-B // p.tb)
+        return -(-blocks // n_sm) * (p.tb + _BLOCK_COLS)
 
-
-def smem_bytes(n: int, m: int, tb: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block: S, V, dX, dY and one (n, TB)
-    scratch tile, each with a row stride of TB + 1 (no bank conflicts)."""
-    return (4 * n + 4 * m) * (tb + 1) * itemsize
+    return min(plans, key=busiest_sm)
 
 
 def _lib_fn(dtype):
@@ -250,7 +334,7 @@ def _lib_fn(dtype):
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         ci = ctypes.c_int
-        fn.argtypes = [ci] * 7 + [vp] * 33
+        fn.argtypes = [ci] * 10 + [vp] * 33
         fn.restype = ci
     return fn
 
@@ -289,7 +373,7 @@ def shared_epoch(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
                 f'{shapes[name]} on {S.device}, got {t.dtype} {tuple(t.shape)} on {t.device}'
             )
     n_sm = torch.cuda.get_device_properties(S.device).multi_processor_count
-    tb = pick_tile(n, m, B, S.element_size(), n_sm)
+    plan = plan_tile(n, m, B, S.element_size(), n_sm)
 
     outs = (torch.empty_like(S), torch.empty_like(dX), torch.empty_like(dY),
             torch.empty_like(fS), torch.empty_like(fdX), torch.empty_like(fdY),
@@ -301,7 +385,8 @@ def shared_epoch(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
     global launches
     with torch.cuda.device(S.device):
         err = _lib_fn(dtype)(
-            n, m, B, tb, int(sc.K), int(not sc.scaled_termination),
+            n, m, B, plan.tb, plan.tc, plan.ks, plan.smem, int(sc.K),
+            int(not sc.scaled_termination),
             int(sc.check_dualgap),
             scal.ctypes.data, *(t.data_ptr() for t in args),
             *(t.data_ptr() for t in outs), stream,

@@ -66,6 +66,48 @@ def test_kernel_matches_plain_on_cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('B, n, m, dtype, tol, f_mode', [
+    (4096, 32, 48, torch.float32, 2e-4, 'resident'),
+    (333, 128, 192, torch.float64, 1e-9, 'slab'),
+])
+def test_kernel_plans_match_plain_on_cuda(B, n, m, dtype, tol, f_mode):
+    """The kernel against its plain version at the headline shape in f32 (F
+    resident in shared memory) and at a ragged n=128, m=192 batch in f64 (F
+    streamed in slabs), one epoch from a state three plain epochs from a cold
+    start.  Statuses identical; values within ``tol`` of the state's scale
+    (f32 sums run in another order and with FMA contraction; 25 iterations
+    of a nonexpansive map keep that to a few 1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    P, A, q, l, u = _problems(B, n, m, seed=0)
+    host = OracleSettings(eps_abs=1e-3, eps_rel=1e-3)
+    stg = default_core_settings(dtype, eps_abs=1e-3, eps_rel=1e-3)
+    P_s, A_s, Q, L, U, scal, rho0, Minv, M, rvec = tbs.shared_setup(
+        P, A, q, l, u, host, dtype=dtype, device='cuda')
+    rinv = torch.where(rvec > 0, 1.0 / rvec, 0.0)
+    F, c0 = tbs._build_affine(A_s, A_s.T, Minv, M, rvec, rinv, stg.sigma, stg.alpha, Q)
+    fixed = (F, torch.cat([P_s, A_s]), A_s.T.contiguous(), rvec, rinv, scal.D, scal.Dinv,
+             scal.E, scal.Einv, c0, Q, L, U)
+    sc = tse.epoch_scalars(stg, scal.c, scal.cinv, 25)
+    S = torch.zeros((n + 2 * m, B), dtype=dtype, device='cuda')
+    st = (S, S[:n].clone(), S[:m].clone(), S.clone(), S[:n].clone(), S[:m].clone(),
+          torch.full((B,), 11, dtype=torch.int32, device='cuda'))
+    for _ in range(3):
+        st = tse.shared_epoch_plain(*fixed, *st, sc)[:7]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tse.plan_tile(n, m, B, S.element_size(), n_sm).f_mode == f_mode
+    before = tse.launches
+    got = tse.shared_epoch(*fixed, *st, sc)
+    torch.cuda.synchronize()
+    assert tse.launches == before + 1
+    want = tse.shared_epoch_plain(*fixed, *st, sc)
+    assert torch.equal(got[6], want[6])
+    scale = max(1.0, float(want[0].abs().max()))
+    for k in (0, 1, 2, 3, 4, 5, 7, 8, 9, 10):
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=tol * scale, equal_nan=True)
+
+
+@pytest.mark.cuda
 def test_batched_osqp_on_cuda_matches_cpu_f64():
     """BatchedOSQP on the card (one kernel launch per epoch) against the same
     solve on the CPU (plain epoch), float64, through a cold solve and a warm

@@ -189,18 +189,65 @@ def test_build_affine_matches_jax():
 
 
 def test_pick_tile():
-    """The block width: up to 32 columns, every SM busy where the batch
-    allows, and shared memory within the Hopper limit."""
-    assert tse.pick_tile(32, 48, 4096, 4, 132) == 16
-    assert tse.pick_tile(32, 48, 8192, 4, 132) == 32
-    assert tse.pick_tile(128, 192, 1024, 4, 132) == 4
-    assert tse.pick_tile(13, 19, 333, 8, 132) == 2
-    assert tse.pick_tile(13, 19, 50, 8, 132) == 1
-    for n, m, B, size in ((128, 192, 4096, 8), (128, 192, 64, 4)):
-        tb = tse.pick_tile(n, m, B, size, 132)
-        assert tse.smem_bytes(n, m, tb, size) <= tse._SMEM_LIMIT
+    """The kernel's plan at the four shapes chip_smoke.py checks: the tile
+    width that least loads the busiest SM, F resident where it fits beside
+    the tiles and streamed in slabs otherwise, one 4-row micro-tile per
+    thread with at least 256 threads where the rows allow, shared memory
+    within the Hopper limit; too large a problem raises."""
+    plan = tse.plan_tile
+    assert plan(32, 48, 4096, 4, 132) == tse.TilePlan(32, 320, 4, 2, 128, 'resident', 121216)
+    assert plan(32, 48, 4096, 8, 132) == tse.TilePlan(32, 320, 4, 2, 128, 'resident', 224000)
+    p = plan(128, 192, 1024, 4, 132)
+    assert (p.tb, p.threads, p.tc, p.f_mode, p.ks) == (8, 320, 2, 'slab', 120)
+    assert plan(13, 19, 333, 8, 132) == tse.TilePlan(4, 32, 4, 1, 51, 'resident', 21456)
+    assert plan(32, 48, 8192, 4, 132).tb == 32
+    assert plan(13, 19, 50, 8, 132).tb == 1
+    for n, m, B, size in ((32, 48, 4096, 4), (128, 192, 1024, 4), (13, 19, 333, 8),
+                          (32, 48, 4096, 8), (128, 192, 4096, 8), (128, 192, 64, 4)):
+        p = plan(n, m, B, size, 132)
+        assert p.smem == tse.smem_bytes(n, m, p.tb, p.ks, size) <= tse._SMEM_LIMIT
+        assert p.threads == -(-(n + m) // 4) * p.tb // p.tc
+        assert p.tb <= p.threads <= tse._MAX_THREADS and p.tc <= p.tb
+        assert (p.f_mode == 'resident') == (p.ks == n + 2 * m)
     with pytest.raises(ValueError, match='shared memory'):
-        tse.pick_tile(4000, 4000, 64, 8, 132)
+        plan(4000, 4000, 64, 8, 132)
+    with pytest.raises(ValueError, match='micro-tile per thread'):
+        plan(1000, 1100, 64, 4, 132)
+
+
+def _cu_layout_regions():
+    """The region sizes of ``Layout`` in csrc/shared_epoch.cu, as source
+    expressions."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tse.__file__).parent / 'csrc' / 'shared_epoch.cu').read_text()
+    body = re.search(r'const int sizes\[kRegions\] = \{(.*?)\};', src, re.S).group(1)
+    exprs = [line.split('//')[0].strip().rstrip(',') for line in body.splitlines()]
+    return [e for e in exprs if e]
+
+
+@pytest.mark.parametrize('n, m, B, size', [(32, 48, 4096, 4), (128, 192, 1024, 4),
+                                           (32, 48, 4096, 8), (128, 192, 1024, 8)])
+def test_plan_smem_matches_cu_layout(n, m, B, size):
+    """The planner's shared-memory figure is the kernel's: the regions that
+    csrc/shared_epoch.cu lays out, evaluated at the plan's TB and KS and the
+    stride rule of w_stride, each rounded up to 16 bytes.  F is resident at
+    n=32, m=48 and streamed in slabs at n=128, m=192, in both dtypes."""
+    p = tse.plan_tile(n, m, B, size, 132)
+    assert p.f_mode == ('resident' if n == 32 else 'slab')
+    nm = n + m
+    ldw = tse.w_stride(nm, size)
+    assert ldw >= -(-nm // 4) * 4 and (ldw * size) % 128 == 16
+    env = dict(n=n, m=m, nm=nm, N2=n + 2 * m, TB=p.tb, KS=p.ks, LDW=ldw)
+    regions = _cu_layout_regions()
+    assert len(regions) == 13
+    align = 16 // size
+    total = sum(-(-eval(e, {}, env) // align) * align for e in regions) * size
+    assert total == p.smem
+    if p.f_mode == 'slab':  # the deepest 8-multiple slab that fits
+        assert p.ks < n + 2 * m
+        assert tse.smem_bytes(n, m, p.tb, p.ks + 8, size) > tse._SMEM_LIMIT
 
 
 def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
