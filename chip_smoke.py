@@ -39,11 +39,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 It imports nothing of JAX or of the JAX package.  It needs the repository's
 ``osqp_tpu_torch`` beside it and a CUDA device.
 
-    python3 chip_smoke.py --k1 [--root DIR] [--plan TB,TC ...]
+    python3 chip_smoke.py --k1
 
-builds K1 and runs only phase 3, with the ``osqp_tpu_torch`` of checkout DIR
-(to hold two trees against each other on one card) or at the given tile
-plans, and prints no result line.
+builds K1, runs only phase 3 and prints no result line.
 """
 
 import json
@@ -58,12 +56,14 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# Peak rates of the cards this may run on (NVIDIA data sheets, dense, without
-# tensor cores for fp32/fp64): (fp32 FLOP/s, fp64 FLOP/s, memory bytes/s).
+# Peak rates of the cards this may run on (NVIDIA data sheets, dense):
+# (fp32 FLOP/s on the CUDA cores, fp64 FLOP/s with the tensor cores' DMMA,
+# memory bytes/s).  Bounds take the card's peak for the type, whatever units
+# the kernel itself uses.
 PEAKS = {
-    'H100 PCIe': (51.2e12, 25.6e12, 2.0e12),
-    'H100 NVL': (60e12, 30e12, 3.9e12),
-    'H100': (67e12, 34e12, 3.35e12),  # SXM5
+    'H100 PCIe': (51.2e12, 51.2e12, 2.0e12),
+    'H100 NVL': (60e12, 60e12, 3.9e12),
+    'H100': (67e12, 67e12, 3.35e12),  # SXM5
 }
 
 HEADLINE = (4096, 32, 48)
@@ -247,13 +247,11 @@ def iterated_columns(status, tb):
     return int(busy[tile].sum())
 
 
-def kernel_phase(card, plans=()):
+def kernel_phase(card):
     """K1 against its plain version at the four shapes; each row with the
     launch's plan, the columns it iterates, the kernel's device time at K=25
     and at K=0 (merge, check and capture only), CUDA events over
-    back-to-back launches, and the plain and unfused epochs' device times.
-    ``plans``: (TB, TC) pairs to run at each shape instead of the planner's
-    choice (those that fit)."""
+    back-to-back launches, and the plain and unfused epochs' device times."""
     from osqp_tpu_torch.ops import shared_epoch as se
 
     f32_peak, f64_peak, mem_peak = peaks(card)
@@ -265,7 +263,6 @@ def kernel_phase(card, plans=()):
     # the kernel; over 25 iterations of a nonexpansive map that stays within
     # a few 1e-6 of the state's scale, so 2e-4 leaves room; f64 the same at
     # 1e-9.
-    planner = getattr(se, 'plan_tile', None)
     for dtype, (B, n, m), tol in shapes:
         fixed, state, sc, ctx = epoch_inputs(B, n, m, dtype, seed=0)
         item = torch.empty((), dtype=dtype).element_size()
@@ -277,40 +274,27 @@ def kernel_phase(card, plans=()):
         n_active = int((state[6] == se.UNSOLVED).sum())
         bound, by = epoch_bound_ms(B, n, m, item, n_active,
                                    f32_peak if dtype == torch.float32 else f64_peak, mem_peak)
-        if planner is None:  # a checkout whose planner is pick_tile
-            cands = [dict(tb=se.pick_tile(n, m, B, item, n_sm))]
-        elif plans:
-            cands = []
-            for tb, tc in plans:
-                try:
-                    cands.append(se.make_plan(n, m, tb, tc, item)._asdict())
-                except ValueError:
-                    continue
-        else:
-            cands = [planner(n, m, B, item, n_sm)._asdict()]
-        for plan in cands:
-            if plans:
-                se.plan_tile = lambda *a, p=se.TilePlan(**plan): p
-            got = se.shared_epoch(*fixed, *state, sc)
-            torch.cuda.synchronize()
-            err = compare(got, want, tol)
-            reps = 20
-            kern = lambda: se.shared_epoch(*fixed, *state, sc)  # noqa: E731
-            sc0 = sc._replace(K=0)
-            ms = device_ms(kern, reps, name='shared_epoch_kernel')
-            ms_k0 = device_ms(lambda: se.shared_epoch(*fixed, *state, sc0), reps,
-                              name='shared_epoch_kernel')
-            events_ms = cuda_ms(kern, reps)
-            row = dict(dtype=str(dtype).replace('torch.', ''), B=B, n=n, m=m, active=n_active,
-                       iterated_cols=iterated_columns(state[6], plan['tb']), plan=plan,
-                       max_abs_err=err, tol=tol,
-                       state_err=max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])),
-                       ms=ms, ms_K0=ms_k0, events_ms=events_ms,
-                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
-            print('shared_epoch vs plain:', json.dumps(row), flush=True)
-            rows.append(row)
-        if plans:
-            se.plan_tile = planner
+        p = se.plan_tile(n, m, B, item, n_sm)
+        plan = dict(p._asdict(), f_mode='resident' if p.ks == n + 2 * m else 'slab',
+                    smem=se.smem_bytes(n, m, p.tb, p.ks, item))
+        got = se.shared_epoch(*fixed, *state, sc)
+        torch.cuda.synchronize()
+        err = compare(got, want, tol)
+        reps = 20
+        kern = lambda: se.shared_epoch(*fixed, *state, sc)  # noqa: E731
+        sc0 = sc._replace(K=0)
+        ms = device_ms(kern, reps, name='shared_epoch_kernel')
+        ms_k0 = device_ms(lambda: se.shared_epoch(*fixed, *state, sc0), reps,
+                          name='shared_epoch_kernel')
+        events_ms = cuda_ms(kern, reps)
+        row = dict(dtype=str(dtype).replace('torch.', ''), B=B, n=n, m=m, active=n_active,
+                   iterated_cols=iterated_columns(state[6], p.tb), plan=plan,
+                   max_abs_err=err, tol=tol,
+                   state_err=max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])),
+                   ms=ms, ms_K0=ms_k0, events_ms=events_ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        print('shared_epoch vs plain:', json.dumps(row), flush=True)
+        rows.append(row)
     return rows
 
 
@@ -697,20 +681,14 @@ def main():
     ap = argparse.ArgumentParser(description='Run the port on one NVIDIA GPU and check it.')
     ap.add_argument('--k1', action='store_true',
                     help='build K1 and run only its phase (3), then stop without a result line')
-    ap.add_argument('--root', type=Path, default=ROOT,
-                    help='the checkout whose osqp_tpu_torch to run (default: beside this file)')
-    ap.add_argument('--plan', action='append', default=[], metavar='TB,TC',
-                    help='with --k1: a tile width and micro-tile width to run instead of '
-                         "the planner's (repeatable)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device (torch.cuda.is_available() is False)', file=sys.stderr)
         return 1
-    root = args.root.resolve()
-    if not (root / 'osqp_tpu_torch' / 'ops' / 'csrc').is_dir():
-        print(f'chip_smoke: osqp_tpu_torch not found in {root}', file=sys.stderr)
+    if not (ROOT / 'osqp_tpu_torch' / 'ops' / 'csrc').is_dir():
+        print(f'chip_smoke: osqp_tpu_torch not found beside {__file__}', file=sys.stderr)
         return 2
-    sys.path.insert(0, str(root))
+    sys.path.insert(0, str(ROOT))
     from osqp_tpu_torch.ops import _build
     from osqp_tpu_torch.ops import dia_matvec as dm
     from osqp_tpu_torch.ops import shared_epoch as se
@@ -725,8 +703,7 @@ def main():
     if args.k1:
         lib = _build.build('shared_epoch')
         print(lib.with_suffix('.log').read_text().strip(), flush=True)
-        plans = [tuple(int(v) for v in p.split(',')) for p in args.plan]
-        print('k1:', json.dumps(kernel_phase(kind, plans)), flush=True)
+        print('k1:', json.dumps(kernel_phase(kind)), flush=True)
         return 0
 
     # 2. build every kernel from the checkout's sources, in parallel

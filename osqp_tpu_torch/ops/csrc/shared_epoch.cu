@@ -16,7 +16,7 @@
 // What bounds it: operations.  Per epoch the work is about
 // K * 2 (n+m)(n+2m) B flops for the iterations (2.1 GFLOP at n=32, m=48,
 // B=4096, K=25) against one read and one write of the state, a few MB, so
-// the bound is the fp32 (or fp64) CUDA-core rate, not memory.
+// the bound is the card's fp32 (or fp64) peak rate, not memory.
 //
 // Design: one block per tile of TB batch columns (TB a power of two up to 32).
 // Everything the block touches within an epoch lives in shared memory (the
@@ -715,19 +715,17 @@ cudaError_t start(int n, int m, int B, int TB, int KS, int threads, size_t smem,
 }
 
 template <typename T>
-int launch(int n, int m, int B, int TB, int TC, int KS, int smem, int K, int unscaled,
-           int check_dualgap, const void* scal, void* const* p, void* stream) {
+int launch(int n, int m, int B, int TB, int TC, int KS, int K, int unscaled, int check_dualgap,
+           const void* scal, void* const* p, void* stream) {
   if (B == 0) return cudaSuccess;
-  // the plan must be one this source can run, and its shared memory must be
-  // the Layout's (the planner and this file agree)
+  // the plan must be one this source can run
   const int nm = n + m, N2 = n + 2 * m;
   const int threads = (nm + 3) / 4 * (TB / max(TC, 1));
-  const Layout lay(n, m, TB, KS, w_stride(nm, sizeof(T)), sizeof(T));
-  const bool tc_ok = TC == 1 || TC == 2 || (TC == 4 && sizeof(T) == 4);
-  if (TB < 1 || TB > 32 || (TB & (TB - 1)) != 0 || !tc_ok || TC > TB || KS < 1 ||
-      KS > N2 || threads < TB || threads > kMaxThreads ||
-      (size_t)smem != (size_t)lay.total() * sizeof(T))
+  if (TB < 1 || TB > 32 || (TB & (TB - 1)) != 0 || (TC != 1 && TC != 2) || TC > TB ||
+      KS < 1 || KS > N2 || threads < TB || threads > kMaxThreads)
     return cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)Layout(n, m, TB, KS, w_stride(nm, sizeof(T)), sizeof(T)).total() * sizeof(T);
   const T* s = static_cast<const T*>(scal);
   Scalars<T> sc{s[0], s[1], s[2], s[3], s[4], s[5], s[6], K, unscaled, check_dualgap};
   Args<T> a;
@@ -745,23 +743,21 @@ int launch(int n, int m, int B, int TB, int TC, int KS, int smem, int K, int uns
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (TC == 1) return start<T, 1>(n, m, B, TB, KS, threads, smem, sc, a, st);
-  if (TC == 2) return start<T, 2>(n, m, B, TB, KS, threads, smem, sc, a, st);
-  if constexpr (sizeof(T) == 4) return start<T, 4>(n, m, B, TB, KS, threads, smem, sc, a, st);
-  return cudaErrorInvalidValue;
+  return start<T, 2>(n, m, B, TB, KS, threads, smem, sc, a, st);
 }
 
 }  // namespace
 
 // C entry points.  The plan (TB batch columns per block, TC columns per
-// thread, KS rows of F' staged at a time, smem bytes) comes from plan_tile in
-// ops/shared_epoch.py.  Pointer order: scal (host: alpha, eps_abs, eps_rel,
-// eps_prim_inf, eps_dual_inf, c, cinv), then the 20 inputs F CH At rho_vec
-// rho_inv D Dinv E Einv c0 Q L U S dX dY fS fdX fdY status, then the 11
-// outputs S dX dY fS fdX fdY status pri dua obj dobj, then the stream.
-// Returns the cudaError_t of the launch.
+// thread, KS rows of F' staged at a time) comes from plan_tile in
+// ops/shared_epoch.py; the launch takes the Layout's shared memory.  Pointer
+// order: scal (host: alpha, eps_abs, eps_rel, eps_prim_inf, eps_dual_inf, c,
+// cinv), then the 20 inputs F CH At rho_vec rho_inv D Dinv E Einv c0 Q L U S
+// dX dY fS fdX fdY status, then the 11 outputs S dX dY fS fdX fdY status pri
+// dua obj dobj, then the stream.  Returns the cudaError_t of the launch.
 #define SHARED_EPOCH_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(int n, int m, int B, int TB, int TC, int KS, int smem,    \
-                      int K, int unscaled, int check_dualgap, const void* scal, \
+  extern "C" int NAME(int n, int m, int B, int TB, int TC, int KS, int K,       \
+                      int unscaled, int check_dualgap, const void* scal,        \
                       void* F, void* CH, void* At, void* rho, void* rhoinv,     \
                       void* D, void* Dinv, void* E, void* Einv, void* c0,       \
                       void* Q, void* L, void* U, void* S, void* dX, void* dY,   \
@@ -772,8 +768,8 @@ int launch(int n, int m, int B, int TB, int TC, int KS, int smem, int K, int uns
     void* const p[] = {F, CH, At, rho, rhoinv, D, Dinv, E, Einv, c0, Q, L, U,   \
                        S, dX, dY, fS, fdX, fdY, status, So, dXo, dYo, fSo,      \
                        fdXo, fdYo, status_o, pri, dua, obj, dobj};              \
-    return launch<T>(n, m, B, TB, TC, KS, smem, K, unscaled, check_dualgap,     \
-                     scal, p, stream);                                          \
+    return launch<T>(n, m, B, TB, TC, KS, K, unscaled, check_dualgap, scal, p,  \
+                     stream);                                                   \
   }
 
 SHARED_EPOCH_ENTRY(shared_epoch_f32, float)

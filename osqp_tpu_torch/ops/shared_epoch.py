@@ -229,18 +229,15 @@ def shared_epoch_plain(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
 
 class TilePlan(NamedTuple):
     """How the kernel cuts one epoch: ``tb`` batch columns per block,
-    ``threads`` per block, each owning a ``rows`` x ``tc`` micro-tile of
+    ``threads`` per block, each owning a 4 x ``tc`` micro-tile of
     ``V = F S``, and F' staged ``ks`` rows of k at a time: all of it once per
-    epoch (``f_mode`` 'resident', ``ks = n + 2m``) or in slabs in every
-    iteration ('slab').  ``smem`` is the block's dynamic shared memory."""
+    epoch (F resident, ``ks = n + 2m``) or in slabs in every iteration.  The
+    block's shared memory is ``smem_bytes(n, m, tb, ks, itemsize)``."""
 
     tb: int
     threads: int
-    rows: int
     tc: int
     ks: int
-    f_mode: str
-    smem: int
 
 
 def w_stride(nm: int, itemsize: int) -> int:
@@ -284,8 +281,7 @@ def make_plan(n: int, m: int, tb: int, tc: int, itemsize: int) -> TilePlan:
             raise ValueError(
                 f'shared_epoch: n={n}, m={m} needs {smem_bytes(n, m, tb, 8, itemsize)} bytes '
                 f'of shared memory at {tb} batch columns per block (limit {_SMEM_LIMIT})')
-    return TilePlan(tb, threads, _ROWS, tc, ks, 'resident' if ks == N2 else 'slab',
-                    smem_bytes(n, m, tb, ks, itemsize))
+    return TilePlan(tb, threads, tc, ks)
 
 
 @functools.lru_cache(maxsize=64)
@@ -293,8 +289,8 @@ def plan_tile(n: int, m: int, B: int, itemsize: int, n_sm: int) -> TilePlan:
     """The kernel's plan.  Block width: the power of two up to 32 whose tile
     fits and that least loads the busiest SM (its blocks times each block's
     columns plus a fixed cost per block), the wider one on a tie.
-    Micro-tile columns: the widest (4 in f32, 2 in f64) that still gives the
-    block at least eight warps; the narrowest when none does.  Threads stay
+    Micro-tile columns: 2 where that still gives the block at least eight
+    warps, else 1.  Threads stay
     within the kernel's 384, and at least one per batch column of the tile
     (the check's column loops)."""
     n_groups = -(-(n + m) // _ROWS)
@@ -305,11 +301,10 @@ def plan_tile(n: int, m: int, B: int, itemsize: int, n_sm: int) -> TilePlan:
     if n_groups > _MAX_THREADS:
         raise ValueError(f'shared_epoch: n + m = {n + m} exceeds {_ROWS * _MAX_THREADS} '
                          f'(one {_ROWS}-row micro-tile per thread, {_MAX_THREADS} threads)')
-    widths = (4, 2, 1) if itemsize == 4 else (2, 1)
     plans = []
     for tb in (32, 16, 8, 4, 2, 1):
         runnable = []
-        for tc in widths:
+        for tc in (2, 1):
             try:
                 runnable.append(make_plan(n, m, tb, tc, itemsize))
             except ValueError:  # TB = 1, TC = 1 always runs (checked above)
@@ -334,7 +329,7 @@ def _lib_fn(dtype):
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         ci = ctypes.c_int
-        fn.argtypes = [ci] * 10 + [vp] * 33
+        fn.argtypes = [ci] * 9 + [vp] * 33
         fn.restype = ci
     return fn
 
@@ -385,7 +380,7 @@ def shared_epoch(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
     global launches
     with torch.cuda.device(S.device):
         err = _lib_fn(dtype)(
-            n, m, B, plan.tb, plan.tc, plan.ks, plan.smem, int(sc.K),
+            n, m, B, plan.tb, plan.tc, plan.ks, int(sc.K),
             int(not sc.scaled_termination),
             int(sc.check_dualgap),
             scal.ctypes.data, *(t.data_ptr() for t in args),

@@ -66,11 +66,11 @@ def test_kernel_matches_plain_on_cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('B, n, m, dtype, tol, f_mode', [
-    (4096, 32, 48, torch.float32, 2e-4, 'resident'),
-    (333, 128, 192, torch.float64, 1e-9, 'slab'),
+@pytest.mark.parametrize('B, n, m, dtype, tol, resident', [
+    (4096, 32, 48, torch.float32, 2e-4, True),
+    (333, 128, 192, torch.float64, 1e-9, False),
 ])
-def test_kernel_plans_match_plain_on_cuda(B, n, m, dtype, tol, f_mode):
+def test_kernel_plans_match_plain_on_cuda(B, n, m, dtype, tol, resident):
     """The kernel against its plain version at the headline shape in f32 (F
     resident in shared memory) and at a ragged n=128, m=192 batch in f64 (F
     streamed in slabs), one epoch from a state three plain epochs from a cold
@@ -95,7 +95,7 @@ def test_kernel_plans_match_plain_on_cuda(B, n, m, dtype, tol, f_mode):
     for _ in range(3):
         st = tse.shared_epoch_plain(*fixed, *st, sc)[:7]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    assert tse.plan_tile(n, m, B, S.element_size(), n_sm).f_mode == f_mode
+    assert (tse.plan_tile(n, m, B, S.element_size(), n_sm).ks == n + 2 * m) == resident
     before = tse.launches
     got = tse.shared_epoch(*fixed, *st, sc)
     torch.cuda.synchronize()

@@ -191,24 +191,30 @@ def test_build_affine_matches_jax():
 def test_pick_tile():
     """The kernel's plan at the four shapes chip_smoke.py checks: the tile
     width that least loads the busiest SM, F resident where it fits beside
-    the tiles and streamed in slabs otherwise, one 4-row micro-tile per
-    thread with at least 256 threads where the rows allow, shared memory
-    within the Hopper limit; too large a problem raises."""
+    the tiles (ks = n + 2m) and streamed in slabs otherwise, one 4 x 2 or
+    4 x 1 micro-tile per thread with at least 256 threads where the rows
+    allow, shared memory within the Hopper limit; too large a problem
+    raises."""
     plan = tse.plan_tile
-    assert plan(32, 48, 4096, 4, 132) == tse.TilePlan(32, 320, 4, 2, 128, 'resident', 121216)
-    assert plan(32, 48, 4096, 8, 132) == tse.TilePlan(32, 320, 4, 2, 128, 'resident', 224000)
-    p = plan(128, 192, 1024, 4, 132)
-    assert (p.tb, p.threads, p.tc, p.f_mode, p.ks) == (8, 320, 2, 'slab', 120)
-    assert plan(13, 19, 333, 8, 132) == tse.TilePlan(4, 32, 4, 1, 51, 'resident', 21456)
+    assert plan(32, 48, 4096, 4, 132) == tse.TilePlan(32, 320, 2, 128)
+    assert tse.smem_bytes(32, 48, 32, 128, 4) == 121216
+    assert plan(32, 48, 4096, 8, 132) == tse.TilePlan(32, 320, 2, 128)
+    assert tse.smem_bytes(32, 48, 32, 128, 8) == 224000
+    assert plan(128, 192, 1024, 4, 132) == tse.TilePlan(8, 320, 2, 120)
+    assert plan(13, 19, 333, 8, 132) == tse.TilePlan(4, 32, 1, 51)
+    assert tse.smem_bytes(13, 19, 4, 51, 8) == 21456
+    assert plan(128, 192, 4096, 4, 132) == tse.TilePlan(8, 320, 2, 120)
     assert plan(32, 48, 8192, 4, 132).tb == 32
     assert plan(13, 19, 50, 8, 132).tb == 1
     for n, m, B, size in ((32, 48, 4096, 4), (128, 192, 1024, 4), (13, 19, 333, 8),
-                          (32, 48, 4096, 8), (128, 192, 4096, 8), (128, 192, 64, 4)):
+                          (32, 48, 4096, 8), (128, 192, 4096, 8), (128, 192, 64, 4),
+                          (128, 192, 4096, 4)):
         p = plan(n, m, B, size, 132)
-        assert p.smem == tse.smem_bytes(n, m, p.tb, p.ks, size) <= tse._SMEM_LIMIT
+        assert tse.smem_bytes(n, m, p.tb, p.ks, size) <= tse._SMEM_LIMIT
         assert p.threads == -(-(n + m) // 4) * p.tb // p.tc
-        assert p.tb <= p.threads <= tse._MAX_THREADS and p.tc <= p.tb
-        assert (p.f_mode == 'resident') == (p.ks == n + 2 * m)
+        assert p.tb <= p.threads <= tse._MAX_THREADS
+        assert p.tc in (1, 2) and p.tc <= p.tb
+        assert p.ks <= n + 2 * m
     with pytest.raises(ValueError, match='shared memory'):
         plan(4000, 4000, 64, 8, 132)
     with pytest.raises(ValueError, match='micro-tile per thread'):
@@ -235,7 +241,8 @@ def test_plan_smem_matches_cu_layout(n, m, B, size):
     stride rule of w_stride, each rounded up to 16 bytes.  F is resident at
     n=32, m=48 and streamed in slabs at n=128, m=192, in both dtypes."""
     p = tse.plan_tile(n, m, B, size, 132)
-    assert p.f_mode == ('resident' if n == 32 else 'slab')
+    resident = p.ks == n + 2 * m
+    assert resident == (n == 32)
     nm = n + m
     ldw = tse.w_stride(nm, size)
     assert ldw >= -(-nm // 4) * 4 and (ldw * size) % 128 == 16
@@ -244,9 +251,8 @@ def test_plan_smem_matches_cu_layout(n, m, B, size):
     assert len(regions) == 13
     align = 16 // size
     total = sum(-(-eval(e, {}, env) // align) * align for e in regions) * size
-    assert total == p.smem
-    if p.f_mode == 'slab':  # the deepest 8-multiple slab that fits
-        assert p.ks < n + 2 * m
+    assert total == tse.smem_bytes(n, m, p.tb, p.ks, size)
+    if not resident:  # the deepest 8-multiple slab that fits
         assert tse.smem_bytes(n, m, p.tb, p.ks + 8, size) > tse._SMEM_LIMIT
 
 
