@@ -23,8 +23,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every step, and K1 must have launched; then its profile;
 5. K2 (dia_matvec) against its plain PyTorch version on the card: the sparse
    path's own DIA operators at n = 2^20 (P with 3 bands, A and A' with 2) in
-   f32 and f64, a ragged case (m_out != n_in, more than 64 bands, offsets up
-   to +-5000) and the empty case; with the kernel's, the plain version's and
+   f32 and f64, gram_diag in f64 with a 0/1 mask / delta weight (as the
+   polish calls it), a ragged case (m_out != n_in, more than 64 bands,
+   offsets up to +-5000) and the empty case; with the kernel's, the plain version's and
    cuSPARSE's (torch.sparse_csr_tensor @ v) times and the byte bound;
 6. the sparse single-QP main path: osqp_tpu_torch.OSQP(sparse=True) in f32 on
    the banded QP family of examples/huge_banded_qp.py at n = 2^20, eps 1e-3:
@@ -33,7 +34,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    test recomputed on the host in float64 with scipy, and K2 must have
    launched; then the same family at n = 16384 in f64 on the card against
    the CPU, and a profile of one more warm step;
-7. a JSON line with each kernel's numbers, then the result line
+7. polish, time_limit, SIGINT and verbose on the single-QP path: the n = 2^20
+   QP again, cold, with the float64 polish (PCG on the masked DIA operator,
+   K2 in f64, launches counted around the polish alone; the polished
+   solution must pass its f64 host termination test and an accepted polish
+   must not raise either residual), then one more under the profiler; the
+   polish at n = 16384 in f64 on the card against the CPU (same
+   status_polish, PCG steps within 1%, x and y within 1e-9); the dense
+   direct path with polish (f64 Cholesky) at n = 2000, m = 3000 (rejected
+   at density 0.01, so its line search runs there, accepted at 0.002); a
+   rejected polish's line search at n = 30; time_limit = 0.05 s and a real SIGINT
+   from a timer at n = 2^20, each stopping after whole chunks; and one
+   verbose solve at n = 2^20 whose console rows are printed and counted;
+8. a JSON line with each kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  It needs the repository's
@@ -493,6 +506,16 @@ def dia_phase(card):
         Ad = spmv.dia_from_scipy(A_s, dtype, DEV)
         v = torch.as_tensor(v_host, dtype=dtype, device=DEV)
         cases += [('P @ v', Pd, P_s, v), ('A @ v', Ad, A_s, v), ("A' @ y", Ad.T, A_s.T, v)]
+    # gram_diag as the polish runs it, in f64: diag(A' diag(w) A) with w =
+    # mask / delta for a 0/1 active-set mask and the default delta 1e-6
+    w = torch.as_tensor((rng.random(SPARSE_N) < 0.3) / 1e-6, dtype=torch.float64, device=DEV)
+    Gd = spmv.DiaMatrix(Ad.bands_t * Ad.bands_t, Ad.offsets_t,
+                        torch.zeros((0, SPARSE_N), dtype=torch.float64, device=DEV), (),
+                        (SPARSE_N, SPARSE_N))
+    gram = Ad.gram_diag(w)
+    if not torch.equal(gram, dm.dia_matvec_plain(Gd.bands, Gd.offsets, w)):
+        raise AssertionError('gram_diag (f64) differs from its plain version')
+    cases.append(('gram_diag', Gd, A_s.T.multiply(A_s.T), w))
     bands, offs, S = _ragged_dia()
     vr = torch.as_tensor(rng.standard_normal(S.shape[1]), device=DEV)
     Sr = spmv.DiaMatrix(torch.as_tensor(bands, device=DEV), offs,
@@ -675,6 +698,286 @@ def profile_sparse(run):
     )
 
 
+CHUNK = max(10 * K, 100)  # the chunked solve's chunk at check_termination = K
+
+
+class PolishSpy:
+    """Wraps ``solver.core.polish`` for the duration of a ``with`` block and
+    records, around the call the backend makes: the K2 launches, the wall
+    time (synchronised), the ADMM residuals the polish was handed and its
+    result; with ``profile``, the polish's device time under torch.profiler
+    (busy, idle share, K2's time and launches)."""
+
+    def __init__(self, profile=False):
+        self.profile = profile
+        self.calls = 0
+
+    def __enter__(self):
+        from osqp_tpu_torch.solver import core
+
+        self._core, self._orig = core, core.polish
+        core.polish = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self._core.polish = self._orig
+
+    def _call(self, *args):
+        from torch.profiler import ProfilerActivity, profile
+
+        from osqp_tpu_torch.ops import dia_matvec as dm
+
+        torch.cuda.synchronize()
+        before = dm.launches
+        t0 = time.perf_counter()
+        if self.profile:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = self._orig(*args)
+                torch.cuda.synchronize()
+        else:
+            out = self._orig(*args)
+            torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - t0
+        self.launches = dm.launches - before
+        self.admm_res = (float(args[8]), float(args[9]))
+        self.result = out
+        self.calls += 1
+        if self.profile:
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            if busy <= 0:
+                raise AssertionError('the profiler recorded no device time in the polish')
+            dia = [e for e in kernels if 'dia_matvec_kernel' in e.key]
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+            self.profiled = dict(
+                wall_ms=self.wall_s * 1e3, device_busy_ms=busy,
+                device_idle_share=1 - busy / (self.wall_s * 1e3),
+                dia_matvec_ms=sum(e.self_device_time_total for e in dia) / 1e3,
+                dia_matvec_launches=sum(e.count for e in dia),
+                kernel_launches_all=sum(e.count for e in kernels),
+                top_kernels=[(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top])
+        return out
+
+
+def sparse_polish_path(sp_run):
+    """Polish at full width: the n = 2^20 banded QP, f32 ADMM, cold, then the
+    float64 polish (PCG on the masked operator, K2 in f64), on the sparse
+    main path's solver with rho reset to its setup value.  The polished
+    solution must pass its f64 host termination test, and an accepted polish
+    must not raise either residual.  Then one more such solve with the polish
+    under the profiler."""
+    from osqp_tpu_torch.ops import dia_matvec as dm
+
+    o, P, A, l, u, q = (sp_run[k] for k in ('solver', 'P', 'A', 'l', 'u', 'qs'))
+    q = q[0]
+    o.update(q=q)
+    o.update_settings(rho=0.1, polishing=True, warm_starting=False)
+    dm.launches = 0
+    with PolishSpy() as spy:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = o.solve(raise_error=False)
+        wall = time.perf_counter() - t0
+    path_launches = dm.launches
+    if r.info.status != 'solved' or spy.calls != 1 or r.info.status_polish == 0:
+        raise AssertionError(f'polish path: status {r.info.status}, polish calls {spy.calls}, '
+                             f'status_polish {r.info.status_polish}')
+    if path_launches <= 0 or spy.launches <= 0:
+        raise AssertionError('the polish path never launched the dia_matvec kernel')
+    ratio = sparse_residual_check(P, A, l, u, q, r.x, r.y, EPS)
+    pol = spy.result
+    if r.info.status_polish == 1 and not (pol.pri_res <= spy.admm_res[0]
+                                          and pol.dua_res <= spy.admm_res[1]):
+        raise AssertionError(f'accepted polish raised a residual: {pol.pri_res, pol.dua_res} '
+                             f'vs ADMM {spy.admm_res}')
+    s = o._solver
+    out = dict(n=SPARSE_N, dtype_admm='float32', dtype_polish='float64', eps=EPS,
+               delta=o.settings.delta, polish_refine_iter=o.settings.polish_refine_iter,
+               admm_iters=r.info.iter, status_polish=r.info.status_polish,
+               polish_time_s=r.info.polish_time, polish_wall_s=spy.wall_s, solve_wall_s=wall,
+               polish_pcg_steps=s.polish_cg_iters, polish_host_syncs=s.polish_host_syncs,
+               polish_dia_launches=spy.launches, path_dia_launches=path_launches,
+               admm_pri_dua=spy.admm_res, polished_pri_dua=(float(pol.pri_res),
+                                                            float(pol.dua_res)),
+               residual_over_bound=ratio)
+    with PolishSpy(profile=True) as prof_spy:
+        o.solve(raise_error=False)
+    out['polish_profile'] = prof_spy.profiled
+    return out
+
+
+def polish_card_vs_cpu():
+    """The banded family at n = 16384 in f64 with polishing, on the card and
+    on the CPU: the same status_polish, PCG steps within 1%, x and y within
+    1e-9."""
+    from osqp_tpu_torch import OSQP
+
+    P, q, A, l, u = banded_qp(SPARSE_CHECK_N, seed=1)
+    out = {}
+    for dev in (DEV, 'cpu'):
+        o = OSQP(dtype=torch.float64, device=dev, sparse=True)
+        o.setup(P=P, q=q, A=A, l=l, u=u, eps_abs=EPS, eps_rel=EPS, polishing=True,
+                verbose=False)
+        out[dev] = (o.solve(raise_error=False), o._solver.polish_cg_iters)
+    (g, cg_g), (w, cg_w) = out[DEV], out['cpu']
+    row = dict(status_polish_card=g.info.status_polish, status_polish_cpu=w.info.status_polish,
+               iter_card=g.info.iter, iter_cpu=w.info.iter, pcg_card=cg_g, pcg_cpu=cg_w,
+               x_diff=float(np.abs(g.x - w.x).max()), y_diff=float(np.abs(g.y - w.y).max()))
+    if g.info.status_polish != w.info.status_polish or g.info.status_polish == 0:
+        raise AssertionError(f'status_polish card {g.info.status_polish} vs cpu '
+                             f'{w.info.status_polish}')
+    if abs(cg_g - cg_w) > 0.01 * cg_w:
+        raise AssertionError(f'polish PCG steps card {cg_g} vs cpu {cg_w}: more than 1% apart')
+    if row['x_diff'] > 1e-9 or row['y_diff'] > 1e-9:
+        raise AssertionError(f'polished x or y differ between card and cpu: {row}')
+    return row
+
+
+def random_sparse_qp(n, m, density, seed=0):
+    """tests/test_sparse_mode.py::_random_sparse_qp: a random sparse QP with
+    a strictly convex P and a feasible box around A x0."""
+    import scipy.sparse as sparse
+
+    rng = np.random.default_rng(seed)
+    Pt = sparse.random(n, n, density=density, random_state=rng)
+    P = (Pt.T @ Pt + 0.1 * sparse.eye(n)).tocsc()
+    q = rng.standard_normal(n)
+    A = sparse.random(m, n, density=density, random_state=rng, format='csc')
+    A = A + 0.01 * sparse.random(m, n, density=5.0 / n, random_state=rng)
+    A = A.tocsc()
+    x0 = rng.standard_normal(n)
+    s0 = rng.random(m) + 0.1
+    u = A @ x0 + s0
+    l = u - 2 * s0
+    return P, q, A, l, u
+
+
+def dense_polish_path(density, n=2000, m=3000):
+    """The dense direct path in f32 with polishing on a random sparse QP: the
+    polish factors its Schur form by Cholesky in f64 on the card.  The
+    returned solution must pass its f64 host termination test.  At density
+    0.01 the polish is rejected (the JAX package rejects it too, in f64) and
+    the line search runs at full width; at 0.002 it is accepted."""
+    from osqp_tpu_torch import OSQP
+
+    P, q, A, l, u = random_sparse_qp(n, m, density, seed=0)
+    o = OSQP(dtype=torch.float32, device=DEV, sparse=False)
+    o.setup(P=P, q=q, A=A, l=l, u=u, eps_abs=EPS, eps_rel=EPS, polishing=True, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = o.solve(raise_error=False)
+    wall = time.perf_counter() - t0
+    if r.info.status != 'solved' or r.info.status_polish == 0:
+        raise AssertionError(f'dense polish: {r.info.status}, status_polish '
+                             f'{r.info.status_polish}')
+    ratio = sparse_residual_check(P, A, l, u, q, r.x, r.y, EPS)
+    return dict(n=n, m=m, density=density, dtype_admm='float32', admm_iters=r.info.iter,
+                status_polish=r.info.status_polish, polish_time_s=r.info.polish_time,
+                solve_wall_s=wall, residual_over_bound=ratio)
+
+
+def polish_random():
+    """tests/problems.py::polish_random (n = 30, m = 50)."""
+    import scipy.sparse as sparse
+
+    np.random.seed(6)
+    n, m = 30, 50
+    Pt = sparse.random(n, n)
+    P = (Pt.T @ Pt).tocsc()
+    q = np.random.randn(n)
+    A = sparse.csc_matrix(np.random.randn(m, n))
+    l = -3 + np.random.randn(m)
+    u = 3 + np.random.randn(m)
+    return P, q, A, l, u
+
+
+def rejected_polish():
+    """A rejected polish (delta = 1, no refinement) on a small QP in f64 on
+    the card: status_polish -1 and the line-search family, whose t[0] = 0
+    sample is the returned ADMM solution."""
+    from osqp_tpu_torch import OSQP
+
+    P, q, A, l, u = polish_random()
+    o = OSQP(dtype=torch.float64, device=DEV)
+    o.setup(P=P, q=q, A=A, l=l, u=u, polishing=True, delta=1.0, polish_refine_iter=0,
+            verbose=False)
+    r = o.solve(raise_error=False)
+    ls = r.linesearch
+    if r.info.status != 'solved' or r.info.status_polish != -1 or ls is None:
+        raise AssertionError(f'rejected polish: {r.info.status}, {r.info.status_polish}, '
+                             f'line search {ls is not None}')
+    x0_err = float(np.abs(ls.X[0] - r.x).max())
+    if ls.t[0] != 0.0 or ls.X.shape != (1000, P.shape[0]) or x0_err > 1e-12:
+        raise AssertionError(f'line search: t[0] {ls.t[0]}, X {ls.X.shape}, '
+                             f'|X[0] - x| {x0_err}')
+    return dict(status_polish=-1, samples=ls.t.size, t_last=float(ls.t[-1]), x0_err=x0_err)
+
+
+def time_limit_path(sp_run):
+    """time_limit = 0.05 s on the n = 2^20 QP at eps 1e-9: the solve stops
+    after a whole number of chunks with TIME_LIMIT_REACHED."""
+    o = sp_run['solver']
+    o.update_settings(rho=0.1, polishing=False, warm_starting=False, eps_abs=1e-9,
+                      eps_rel=1e-9, time_limit=0.05)
+    r = o.solve(raise_error=False)
+    if r.info.status != 'run time limit reached' or r.info.iter % CHUNK \
+            or not np.isfinite(r.x).all():
+        raise AssertionError(f'time_limit: {r.info.status} after {r.info.iter} iterations')
+    return dict(status=r.info.status, iters=r.info.iter, chunk=CHUNK,
+                solve_time_s=r.info.solve_time)
+
+
+def sigint_path(sp_run, chunk_s):
+    """A real SIGINT, sent by a timer 1.5 chunks into a solve with
+    time_limit = 1e9 at eps 1e-9 on the n = 2^20 QP: the solve returns
+    'interrupted' with the last completed chunk's finite iterates."""
+    import os
+    import signal
+    import threading
+
+    o = sp_run['solver']
+    o.update_settings(rho=0.1, time_limit=1e9, max_iter=20 * CHUNK)
+    old = signal.signal(signal.SIGINT, signal.default_int_handler)
+    timer = threading.Timer(1.5 * chunk_s, os.kill, (os.getpid(), signal.SIGINT))
+    try:
+        timer.start()
+        t0 = time.perf_counter()
+        r = o.solve(raise_error=False)
+        wall = time.perf_counter() - t0
+    finally:
+        timer.cancel()
+        signal.signal(signal.SIGINT, old)
+    if r.info.status != 'interrupted' or r.info.iter < CHUNK or r.info.iter % CHUNK \
+            or not np.isfinite(r.x).all():
+        raise AssertionError(f'SIGINT: {r.info.status} after {r.info.iter} iterations')
+    return dict(status=r.info.status, iters=r.info.iter, timer_s=1.5 * chunk_s,
+                solve_wall_s=wall)
+
+
+def verbose_path(sp_run, max_iter=600):
+    """One verbose cold solve at n = 2^20 (eps 1e-9, max_iter 600): its
+    console output is printed, and it must hold floor(iter / 200) iteration
+    rows."""
+    import contextlib
+    import io
+    import re
+
+    o = sp_run['solver']
+    o.update_settings(rho=0.1, time_limit=0, max_iter=max_iter, verbose=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        r = o.solve(raise_error=False)
+    o.update_settings(verbose=False)
+    text = buf.getvalue()
+    print(text, end='', flush=True)
+    rows = [x for x in text.splitlines() if re.match(r'^ *\d+  -?\d', x)]
+    if len(rows) != r.info.iter // 200 or 'status:' not in text:
+        raise AssertionError(f'verbose: {len(rows)} rows for {r.info.iter} iterations')
+    return dict(status=r.info.status, iters=r.info.iter, rows=len(rows))
+
+
+
 def main():
     import argparse
 
@@ -764,7 +1067,19 @@ def main():
     print('sparse card vs cpu (n=16384, f64):', json.dumps(sparse_card_vs_cpu()), flush=True)
     print('sparse warm step profile:', json.dumps(profile_sparse(sp_run)), flush=True)
 
-    # 7. the kernels line and the result line
+    # 7. polish, time_limit, SIGINT and verbose on the single-QP path
+    pol = sparse_polish_path(sp_run)
+    print('sparse polish (n=2^20):', json.dumps(pol), flush=True)
+    print('polish card vs cpu (n=16384, f64):', json.dumps(polish_card_vs_cpu()), flush=True)
+    for density in (0.01, 0.002):
+        print('dense polish (n=2000, m=3000):', json.dumps(dense_polish_path(density)), flush=True)
+    print('rejected polish, line search (n=30):', json.dumps(rejected_polish()), flush=True)
+    tl = time_limit_path(sp_run)
+    print('time_limit (n=2^20):', json.dumps(tl), flush=True)
+    print('SIGINT (n=2^20):', json.dumps(sigint_path(sp_run, tl['solve_time_s'])), flush=True)
+    print('verbose (n=2^20):', json.dumps(verbose_path(sp_run)), flush=True)
+
+    # 8. the kernels line and the result line
     head = rows[0]
     dia_head = dia_rows[0]  # P @ v, float32, n = 2^20: the sparse path's widest operator
     kernels = [dict(
@@ -777,7 +1092,8 @@ def main():
     ), dict(
         name='dia_matvec', route='cuda', source='osqp_tpu_torch/ops/csrc/dia_matvec.cu',
         replaces='tools/proto_dia_pallas.py:25', plain_of='osqp_tpu/ops/spmv.py:79',
-        launches=dia_launches, max_abs_err=max(r['max_abs_err'] for r in dia_rows),
+        launches=dia_launches, polish_launches_f64=pol['polish_dia_launches'],
+        max_abs_err=max(r['max_abs_err'] for r in dia_rows),
         ms=dia_head['ms'], plain_ms=dia_head['plain_ms'], bound_ms=dia_head['bound_ms'],
         bound_by=dia_head['bound_by'], library_ms=dia_head['library_ms'],
         shape=f"{dia_head['case']} D={dia_head['D']} m={dia_head['m_out']} {dia_head['dtype']}",

@@ -14,6 +14,12 @@ Two modes, chosen at setup as the JAX package chooses them:
   host in scipy, P and A as DIA operators (``ops.spmv``) whose matvecs are the
   hand-written CUDA kernel on the card, and always the indirect (PCG) solver.
 
+``solve`` runs the ADMM loop in one call, or in chunks between which it
+checks the clock (``time_limit``) and where a SIGINT stops it; then, for a
+solved problem with ``polishing``, the float64 active-set polish and, if that
+is rejected, its line-search family; ``verbose`` prints the JAX package's
+console rows.
+
 The JAX package's environment knobs are arguments: ``sparse``
 (``OSQP_TPU_SPARSE``), ``sparse_format`` (``OSQP_TPU_SPARSE_FORMAT``) and
 ``dense_budget_bytes`` (``OSQP_TPU_DENSE_SPMV_BYTES``).
@@ -21,7 +27,9 @@ The JAX package's environment knobs are arguments: ``sparse``
 
 from __future__ import annotations
 
+import os
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import scipy.sparse as sp
@@ -40,18 +48,11 @@ from .exceptions import OSQPException
 from .ops import spmv
 from .settings import Info, OracleSettings, Solution, core_settings, np_dtype
 from .solver import core
+from .utils.printing import print_footer, print_iter_header, print_setup_header
 from .utils.scaling_host import ruiz_scale_scipy
 
 SPARSE_AUTO_ENTRIES = 25_000_000
-
-_LATER = {
-    'polishing': 'polishing (and its line-search fallback) is not ported yet (ROADMAP.md '
-                 'Queue 1: polish and the line-search fallback); pass polishing=False',
-    'time_limit': 'time_limit is not ported yet (ROADMAP.md Queue 1: time_limit and SIGINT); '
-                  'pass time_limit=0',
-    'verbose': 'verbose printing is not ported yet (ROADMAP.md Queue 1: verbose printing); '
-               'pass verbose=False',
-}
+VERSION = '1.0.0.dev0'  # the version the verbose header prints, as the JAX package's
 
 
 def capabilities() -> int:
@@ -60,13 +61,12 @@ def capabilities() -> int:
             | CapabilitiesType.OSQP_CAPABILITY_UPDATE_MATRICES)
 
 
-def _check_ported(stg) -> None:
-    if stg.polishing:
-        raise NotImplementedError(_LATER['polishing'])
-    if float(stg.time_limit or 0.0) > 0.0:
-        raise NotImplementedError(_LATER['time_limit'])
-    if stg.verbose:
-        raise NotImplementedError(_LATER['verbose'])
+def _poll_interrupt():
+    """Between-chunk interrupt point of the chunked (time_limit) solve loop.
+
+    A real SIGINT raises KeyboardInterrupt in the host loop wherever it
+    lands; this hook lets tests inject one deterministically (by
+    monkeypatching it to raise).  A no-op otherwise."""
 
 
 def _invalid():
@@ -99,6 +99,8 @@ class Solver:
         self._sparse_format = sparse_format
         self._dense_budget = int(dense_budget_bytes)
         self._is_sparse = False
+        # the last solve's polish: PCG steps (sparse mode) and host syncs
+        self.polish_cg_iters = self.polish_host_syncs = 0
 
     # -- helpers -----------------------------------------------------------
 
@@ -145,7 +147,6 @@ class Solver:
     def setup(self, P, q, A, l, u, **settings):
         t0 = time.perf_counter()
         self._stg = OracleSettings(**settings)
-        _check_ported(self._stg)
         dt = self._dtype
         f = self._f()
 
@@ -165,6 +166,7 @@ class Solver:
         self.n, self.m = n, m
         self._P_triu_pattern = P_triu  # CSC pattern for update_data_mat
         self._A_pattern = A.copy()
+        self._nnz_P, self._nnz_A = P_full.nnz, A.nnz  # for the verbose header
         self._l_orig = l.copy()
         self._u_orig = u.copy()
 
@@ -217,19 +219,94 @@ class Solver:
         self._info.setup_time = time.perf_counter() - t0
         self._info.rho_estimate = self._stg.rho
 
+    def _run_admm(self, t0):
+        """The ADMM loop: one ``core.solve_scaled`` call, or chunks of it
+        when a time limit is set or ``OSQP_TPU_CHUNKED_SOLVE=1`` (the JAX
+        package's environment switch, ``jax_backend.py``).  Between chunks
+        the wall clock is compared with ``time_limit`` (TIME_LIMIT_REACHED),
+        and a KeyboardInterrupt (SIGINT) gives OSQP_SIGINT with the last
+        completed chunk's iterates; one before the first chunk completes
+        propagates."""
+        stg = self._stg
+        verbose = bool(stg.verbose)
+        cs = core_settings(stg, self._dtype)
+        time_limit = float(stg.time_limit or 0.0)
+        if not (time_limit > 0.0 or os.environ.get('OSQP_TPU_CHUNKED_SOLVE') == '1'):
+            return core.solve_scaled(self._data, self._scal, cs, self._rho, self._factor,
+                                     self._iterates, indirect=self._indirect, verbose=verbose)
+        ct = max(int(stg.check_termination), 1)
+        chunk = max(10 * ct, 100)
+        chunk -= chunk % ct
+        it0, max_iter = 0, int(stg.max_iter)
+        iterates, rho, factor = self._iterates, self._rho, self._factor
+        # summed over chunks: rho updates and the primal-dual integral as in
+        # the JAX package, and the port's CG steps and host syncs
+        acc = dict(primdual_acc=0.0, rho_updates=0, cg_iters=0, host_syncs=0)
+        res = None
+        try:
+            while True:
+                _poll_interrupt()
+                # each chunk starts from a fresh loop state, as the JAX
+                # package's chunks do (so the CG tolerance restarts at 1e-3)
+                res = core.solve_scaled(self._data, self._scal,
+                                        cs._replace(iter_cap=min(it0 + chunk, max_iter)),
+                                        rho, factor, iterates, indirect=self._indirect,
+                                        verbose=verbose, it0=it0)
+                it0 = int(res.iters)
+                for k in acc:
+                    acc[k] += getattr(res, k)
+                iterates, rho, factor = res.iterates, res.rho, res.factor
+                if res.status != int(SolverStatus.OSQP_UNSOLVED) or it0 >= max_iter:
+                    break
+                if time_limit > 0.0 and time.perf_counter() - t0 > time_limit:
+                    res = res._replace(status=int(SolverStatus.OSQP_TIME_LIMIT_REACHED))
+                    break
+        except KeyboardInterrupt:
+            if res is None:
+                raise  # interrupted before any chunk completed
+            res = res._replace(status=int(SolverStatus.OSQP_SIGINT))
+        return res._replace(**acc)
+
+    def _polish(self, res):
+        """Polish the ADMM solution in float64 (``jax_backend.py``: the Schur
+        operator's 1/delta conditioning defeats float32).  Data, scaling and
+        iterates are cast to float64 for this call only; DIA operands keep
+        their offsets.  Returns the polish result, the float64 data and
+        scaling."""
+        f64 = torch.float64
+        d = self._data
+
+        def cast(M):
+            return M.astype(f64) if isinstance(M, spmv.DiaMatrix) else M.to(f64)
+
+        data = core.QPData(P=cast(d.P), q=d.q.to(f64), A=cast(d.A), l=d.l.to(f64),
+                           u=d.u.to(f64))
+        sc = self._scal
+        scal = core.Scaling(D=sc.D.to(f64), Dinv=sc.Dinv.to(f64), E=sc.E.to(f64),
+                            Einv=sc.Einv.to(f64), c=np.float64(sc.c), cinv=np.float64(sc.cinv))
+        it = res.iterates
+        pol = core.polish(data, scal, core_settings(self._stg, f64), self._stg.delta,
+                          int(self._stg.polish_refine_iter), it.x.to(f64), it.z.to(f64),
+                          it.y.to(f64), res.pri_res, res.dua_res)
+        return pol, data, scal
+
     def solve(self):
         stg = self._stg
         info = self._info
-        _check_ported(stg)
         t0 = time.perf_counter()
         if self._clear_update_time:
             info.update_time = 0.0
         if not stg.warm_starting:
             self._zero_iterates()
 
-        res = core.solve_scaled(self._data, self._scal, core_settings(stg, self._dtype),
-                                self._rho, self._factor, self._iterates,
-                                indirect=self._indirect)
+        if stg.verbose:
+            print_setup_header(self.n, self.m, self._nnz_P + self._nnz_A, stg, 'torch',
+                               'indirect' if self._indirect else 'direct', VERSION,
+                               self._device)
+            print_iter_header()
+
+        res = self._run_admm(t0)
+        status = int(res.status)
         self._iterates = res.iterates
         self._rho = res.rho
         self._factor = res.factor
@@ -244,8 +321,8 @@ class Solver:
         info.dual_res = float(res.dua_res)
         info.rho_estimate = float(res.rho_estimate)
         info.rho_updates = int(res.rho_updates)
-        info.status_val = int(res.status)
-        info.status = status_string(res.status)
+        info.status_val = status
+        info.status = status_string(status)
         info.cg_iters = int(res.cg_iters)
         info.host_syncs = int(res.host_syncs)
         self._stg.rho = float(res.rho.rho)
@@ -254,8 +331,36 @@ class Solver:
         # the core accumulates the iteration integral of min(1, rel_kkt);
         # the mean iteration time turns it into the time integral
         info.primdual_int = float(res.primdual_acc) * info.solve_time / max(int(res.iters), 1)
+
+        # polish: only a SOLVED run, always in float64
         info.status_polish = 0
         info.polish_time = 0.0
+        self.polish_cg_iters = self.polish_host_syncs = 0
+        linesearch = None
+        if stg.polishing and status == int(SolverStatus.OSQP_SOLVED):
+            tp = time.perf_counter()
+            pol, data64, scal64 = self._polish(res)
+            self.polish_cg_iters, self.polish_host_syncs = pol.cg_iters, pol.host_syncs
+            if pol.success:
+                info.status_polish = 1
+                info.obj_val = float(pol.obj_val)
+                info.prim_res = float(pol.pri_res)
+                info.dual_res = float(pol.dua_res)
+                self._iterates = core.Iterates(x=pol.x.to(self._dtype), z=pol.z.to(self._dtype),
+                                               y=pol.y.to(self._dtype))
+                x_out = (scal64.D * pol.x).cpu().numpy()
+                y_out = (scal64.cinv * (scal64.E * pol.y)).cpu().numpy()
+            else:
+                info.status_polish = -1
+                # the line-search fallback family (ref _osqp.py:1817-1826):
+                # unscaled samples of the ADMM -> polished segment
+                it = res.iterates
+                ls = core.line_search_family(data64, scal64, it.x.to(torch.float64),
+                                             it.z.to(torch.float64), it.y.to(torch.float64),
+                                             pol.x, pol.z, pol.y)
+                linesearch = SimpleNamespace(**{k: v.cpu().numpy()
+                                                for k, v in ls._asdict().items()})
+            info.polish_time = time.perf_counter() - tp
 
         if self._first_run:
             info.run_time = info.setup_time + info.solve_time + info.polish_time
@@ -263,13 +368,15 @@ class Solver:
             info.run_time = info.update_time + info.solve_time + info.polish_time
         self._first_run = False
         self._clear_update_time = True
+        if stg.verbose:
+            print_footer(info, stg.polishing)
 
         sol = self._solution
         sol.x = x_out
         sol.y = y_out
         sol.prim_inf_cert = res.prim_inf_cert.cpu().numpy().astype(np.float64)
         sol.dual_inf_cert = res.dual_inf_cert.cpu().numpy().astype(np.float64)
-        sol.linesearch = None
+        sol.linesearch = linesearch
         return sol, info
 
     # -- warm start / updates ----------------------------------------------
@@ -359,6 +466,7 @@ class Solver:
             P_triu = sp.csc_matrix((data, P_triu.indices, P_triu.indptr), shape=P_triu.shape)
             self._P_triu_pattern = P_triu
             P_full = (P_triu + P_triu.T - sp.diags(P_triu.diagonal())).tocsc()
+            self._nnz_P = P_full.nnz
             if self._is_sparse:
                 P_new = spmv.from_scipy(_scale_csc(P_full, D, D, float(self._scal.c)), dt,
                                         self._sparse_fmt_P, self._device)
@@ -377,6 +485,7 @@ class Solver:
                 data[np.asarray(A_i, np.int64)] = A_x
             A = sp.csc_matrix((data, A.indices, A.indptr), shape=A.shape)
             self._A_pattern = A
+            self._nnz_A = A.nnz
             if self._is_sparse:
                 E = self._scal.E.cpu().numpy().astype(np.float64)
                 A_new = spmv.from_scipy(_scale_csc(A, E, D), dt, self._sparse_fmt_A,
@@ -409,8 +518,6 @@ class Solver:
         for k, v in kwargs.items():
             if not hasattr(self._stg, k):
                 raise ValueError(f'Unrecognized setting {k}')
-        trial = OracleSettings(**{**vars(self._stg), **kwargs})
-        _check_ported(trial)
         for k, v in kwargs.items():
             if k in ('linsys_solver', 'sigma') and getattr(self._stg, k) != v:
                 refactor_needed = True

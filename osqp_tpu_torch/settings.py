@@ -116,7 +116,8 @@ class CoreSettings(NamedTuple):
     adaptive_rho_interval: int  # effective, aligned to check_termination
     adaptive_rho_tolerance: np.floating
     rho_is_vec: bool
-    iter_cap: int  # iterations allowed this call (== max_iter)
+    max_iter: int
+    iter_cap: int  # iterations allowed this call: max_iter, or the end of a chunk
     cg_max_iter: int
     cg_tol_fraction: np.floating
     cg_tol_reduction: np.floating  # stall-triggered CG-tolerance division factor
@@ -143,6 +144,7 @@ def core_settings(stg: OracleSettings, dtype: torch.dtype) -> CoreSettings:
         adaptive_rho_interval=interval,
         adaptive_rho_tolerance=f(stg.adaptive_rho_tolerance),
         rho_is_vec=bool(stg.rho_is_vec),
+        max_iter=int(stg.max_iter),
         iter_cap=int(stg.max_iter),
         cg_max_iter=int(stg.cg_max_iter),
         cg_tol_fraction=f(stg.cg_tol_fraction),

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..settings import CoreSettings, np_dtype
+from ..utils.printing import print_loop_row
 from ..constants import (
     MAX_SCALING,
     MIN_SCALING,
@@ -537,7 +538,12 @@ class LoopState:
 
 
 def admm_iteration(data: QPData, settings: CoreSettings, st: LoopState, indirect: bool):
-    """One ADMM step (ref _osqp.py:644-703); updates ``st`` in place."""
+    """One ADMM step (ref _osqp.py:644-703).
+
+    It reassigns ``st``'s fields to new tensors and never writes into a
+    tensor in place.  The chunked solve relies on this: a KeyboardInterrupt
+    that lands mid-chunk leaves the previous chunk's iterates, which this
+    chunk started from, intact."""
     m = data.A.shape[0]
     x_prev, z_prev, y = st.x, st.z, st.y
     rho_vec, rho_inv = st.rho.rho_vec, st.rho.rho_inv_vec
@@ -631,12 +637,18 @@ def _run_check(data, scal, settings, st: LoopState, approximate=False):
 
 
 def solve_scaled(data: QPData, scal: Scaling, settings: CoreSettings, rho: RhoState,
-                 factor: Factor, iterates: Iterates, indirect: bool = False) -> SolveResult:
+                 factor: Factor, iterates: Iterates, indirect: bool = False,
+                 verbose: bool = False, it0: int = 0) -> SolveResult:
     """Run the ADMM loop on already-scaled data: epochs of
     ``check_termination`` iterations, each followed by the termination check,
     the CG-tolerance update (indirect mode) and, every adaptation interval,
     adaptive rho; then the post-loop 10x check and unscaling
-    (``osqp_tpu/solver/core.py::solve_scaled_impl``)."""
+    (``osqp_tpu/solver/core.py::solve_scaled_impl``).
+
+    ``it0`` is the iteration count a chunk starts from: the loop runs until
+    ``settings.iter_cap``, and only a run that reaches ``settings.max_iter``
+    unsolved takes the post-loop check.  ``verbose`` prints a row at every
+    check epoch whose iteration count is a multiple of 200."""
     n = data.P.shape[0]
     m = data.A.shape[0]
     x0 = iterates.x
@@ -644,7 +656,7 @@ def solve_scaled(data: QPData, scal: Scaling, settings: CoreSettings, rho: RhoSt
     f = np_dtype(dtype)
 
     st = LoopState(
-        it=0, status=_UNSOLVED,
+        it=int(it0), status=_UNSOLVED,
         x=iterates.x, z=iterates.z, y=iterates.y, xtld=iterates.x,
         delta_x=x0.new_zeros((n,)), delta_y=x0.new_zeros((m,)),
         rho=rho, factor=factor,
@@ -673,6 +685,8 @@ def solve_scaled(data: QPData, scal: Scaling, settings: CoreSettings, rho: RhoSt
         # primal-dual integral: iteration integral of the capped relative
         # KKT error (last-known value; converted to time by the backend)
         st.primdual_acc = st.primdual_acc + f(this_epoch) * np.minimum(f(1), st.rel_kkt)
+        if verbose and do_check and st.it % 200 == 0:
+            print_loop_row(st.it, st.obj_val, st.pri_res, st.dua_res, st.rho.rho)
 
         # Adaptive CG tolerance (indirect mode): monotone tightening toward
         # the ADMM residual scale, with a forced 1/cg_tol_reduction cut
@@ -693,7 +707,7 @@ def solve_scaled(data: QPData, scal: Scaling, settings: CoreSettings, rho: RhoSt
 
     # Post-loop bookkeeping (ref _osqp.py:1248-1275): if no terminal status,
     # re-check exactly, then approximately (10x eps), else MAX_ITER_REACHED.
-    if st.status == _UNSOLVED and st.it >= iter_cap:
+    if st.status == _UNSOLVED and st.it >= settings.max_iter:
         (st.status, st.pri_res, st.dua_res, st.obj_val, st.dual_obj_val,
          st.rel_kkt) = _run_check(data, scal, settings, st)
         if st.status == _UNSOLVED:
@@ -726,3 +740,158 @@ def solve_scaled(data: QPData, scal: Scaling, settings: CoreSettings, rho: RhoSt
         rel_kkt_error=st.rel_kkt, primdual_acc=st.primdual_acc,
         iterates=Iterates(x=st.x, z=st.z, y=st.y), rho=st.rho, factor=st.factor,
     )
+
+
+# ---------------------------------------------------------------------------
+# Polish (ref _osqp.py:1693-1828): active-set masking, shape-stable
+# ---------------------------------------------------------------------------
+
+
+class PolishResult(NamedTuple):
+    success: bool
+    x: torch.Tensor
+    z: torch.Tensor
+    y: torch.Tensor
+    obj_val: np.floating
+    pri_res: np.floating
+    dua_res: np.floating
+    cg_iters: int  # PCG steps of the Schur solves (sparse mode)
+    host_syncs: int
+
+
+def polish(data: QPData, scal: Scaling, settings: CoreSettings, delta, refine_iters: int,
+           x, z, y, pri_res, dua_res) -> PolishResult:
+    """Active-set polish (``osqp_tpu/solver/core.py::polish``).  Inactive rows
+    of A are masked to zero, which makes the (2,2) block enforce ``y_i = 0``
+    exactly for inactive constraints.
+
+    Dense data: Cholesky of the Schur form.  DIA data (sparse mode):
+    diagonally-preconditioned CG on the same operator, matvec-only, so the
+    reduced system is never materialized; each CG step reads its residual
+    norm on the host.  ``delta``, ``pri_res`` and ``dua_res`` are host
+    scalars; the acceptance test reads the polished residuals in one more
+    host sync."""
+    n = data.P.shape[0]
+    m = data.A.shape[0]
+    dtype = x.dtype
+    f = np_dtype(dtype)
+    delta = f(delta)
+    sparse_mode = not (isinstance(data.P, torch.Tensor) and isinstance(data.A, torch.Tensor))
+
+    if m:
+        low = (z - data.l) < -y  # lower-active guess (ref _osqp.py:1719)
+        upp = (data.u - z) < y  # upper-active guess (ref _osqp.py:1720)
+        active = low | upp
+        mask = active.to(dtype)
+        b2 = torch.where(low, data.l, torch.where(upp, data.u, 0.0))
+    else:
+        b2 = None
+
+    # masked-row products: Ared = diag(mask) A, never materialized
+    def ared_mv(v):
+        return mask * (data.A @ v)
+
+    def aredt_mv(w):
+        return data.A.T @ (mask * w)
+
+    # Reduced KKT [[P + dI, Ared'], [Ared, -dI]] solved through its Schur
+    # form M = P + dI + Ared' (1/d) Ared; inactive rows give y_i = 0.
+    counts = dict(cg_iters=0, host_syncs=0)
+    if sparse_mode:
+        w = mask / delta if m else None
+        diag_M = mat_diag(data.P) + delta
+        if m:
+            diag_M = diag_M + gram_diag(data.A, w)
+        cg_tol = f(1e-12 if dtype == torch.float64 else 1e-7)
+
+        def schur_solve(rhs):
+            xs, k, syncs = pcg_solve(data.P, data.A, delta, w, diag_M, rhs,
+                                     torch.zeros_like(rhs), cg_tol, 4 * n)
+            counts['cg_iters'] += k
+            counts['host_syncs'] += syncs
+            return xs
+    else:
+        M = data.P + delta * torch.eye(n, dtype=dtype, device=x.device)
+        if m:
+            Ared = mask[:, None] * data.A
+            M = M + Ared.T @ (Ared / delta)
+        L, info = torch.linalg.cholesky_ex(M)
+        L = torch.where(info == 0, L, torch.nan)  # NaN, as JAX's Cholesky gives
+
+        def schur_solve(rhs):
+            return _cho_solve(L, rhs)
+
+    b1 = -data.q
+
+    def kkt_solve(r1, r2):
+        if not m:
+            return schur_solve(r1), x.new_zeros((0,))
+        xs = schur_solve(r1 + aredt_mv(r2 / delta))
+        return xs, (ared_mv(xs) - r2) / delta
+
+    x_pol, y_red = kkt_solve(b1, b2)
+
+    # iterative refinement against the *unregularized* reduced KKT operator
+    # (ref _osqp.py:1693-1708)
+    for _ in range(int(refine_iters)):
+        r1 = b1 - (data.P @ x_pol + aredt_mv(y_red) if m else data.P @ x_pol)
+        r2 = b2 - ared_mv(x_pol) if m else None
+        dx, dy = kkt_solve(r1, r2)
+        x_pol, y_red = x_pol + dx, y_red + dy
+
+    if m:
+        z_pol = data.A @ x_pol
+        y_pol = torch.where(active, y_red, 0.0)
+        # normal-cone projection (ref _osqp.py:676-680)
+        tmp = z_pol + y_pol
+        z_pol = torch.clamp(tmp, data.l, data.u)
+        y_pol = tmp - z_pol
+    else:
+        z_pol = y_pol = x.new_zeros((0,))
+
+    pri_pol, dua_pol, obj_pol, *_ = compute_info(data, scal, x_pol, z_pol, y_pol, settings)
+    pri_pol, dua_pol, obj_pol = (f(v) for v in
+                                 torch.stack([pri_pol, dua_pol, obj_pol]).cpu().numpy())
+    counts['host_syncs'] += 1
+
+    # acceptance test (ref _osqp.py:1786-1793)
+    pri_res, dua_res = f(pri_res), f(dua_res)
+    success = bool(((pri_pol < pri_res) and (dua_pol < dua_res))
+                   or ((pri_pol < pri_res) and (dua_res < 1e-10))
+                   or ((dua_pol < dua_res) and (pri_res < 1e-10)))
+    return PolishResult(success=success, x=x_pol, z=z_pol, y=y_pol, obj_val=obj_pol,
+                        pri_res=pri_pol, dua_res=dua_pol, **counts)
+
+
+class LineSearchFamily(NamedTuple):
+    t: torch.Tensor  # (N,)
+    X: torch.Tensor  # (N, n) unscaled primal samples
+    Z: torch.Tensor  # (N, m)
+    Y: torch.Tensor  # (N, m)
+
+
+def line_search_family(data: QPData, scal: Scaling, x1, z1, y1, x2, z2, y2,
+                       n_points: int = 1000, t_max=0.002) -> LineSearchFamily:
+    """Polish line-search fallback (ref _osqp.py:1817-1826, 1830-1855): when
+    the polished point does not dominate, sample ``t = linspace(0, t_max,
+    N)`` on the segment from the ADMM iterates (``x1, z1, y1``) to the
+    polished ones (``x2, z2, y2``), project each sample onto the normal cone
+    in one batched clamp, and return the unscaled family for diagnostics (no
+    better point is adopted).
+
+    As in ``osqp_tpu/solver/core.py::line_search_family``, Y is unscaled by
+    ``cinv * E``, consistently with ``solution.y`` (the reference unscales it
+    by E only)."""
+    m = data.A.shape[0]
+    t = torch.linspace(0.0, t_max, n_points, dtype=x1.dtype, device=x1.device)
+    X = x1[None, :] + t[:, None] * (x2 - x1)[None, :]
+    Z = z1[None, :] + t[:, None] * (z2 - z1)[None, :]
+    Y = y1[None, :] + t[:, None] * (y2 - y1)[None, :]
+    tmp = Z + Y
+    Z = torch.clamp(tmp, data.l[None, :], data.u[None, :])
+    Y = tmp - Z
+    X = X * scal.D[None, :]
+    if m:
+        Z = Z * scal.Einv[None, :]
+        Y = scal.cinv * (Y * scal.E[None, :])
+    return LineSearchFamily(t=t, X=X, Z=Z, Y=Y)

@@ -66,6 +66,8 @@ o.setup(P=Pb, q=rng.standard_normal(nb), A=Ab, l=-1.5 * np.ones(nb), u=1.5 * np.
         verbose=False)
 assert o._solver._sparse_fmt_P == o._solver._sparse_fmt_A == 'dia'
 assert o.solve(raise_error=True).info.status == 'solved'
+o.update_settings(polishing=True, verbose=True, time_limit=1e9)
+assert o.solve(raise_error=True).info.status_polish == 1
 assert not any(k == 'jax' or k.startswith(('jax.', 'osqp_tpu.')) for k in sys.modules
                if sys.modules[k] is not None)
 print('ok')
@@ -75,7 +77,8 @@ print('ok')
 def test_port_imports_and_solves_without_jax():
     """A fresh interpreter in which importing jax or osqp_tpu fails imports
     every module of the port, solves a tiny batch and a small banded QP in
-    sparse mode on the CPU."""
+    sparse mode on the CPU, then the banded QP again with polishing, verbose
+    printing and a time limit."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, '-c', _CHILD], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)

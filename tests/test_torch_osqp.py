@@ -171,15 +171,18 @@ def test_no_device_without_cuda_raises(monkeypatch):
 
 
 def test_unported_settings_raise():
+    """Polishing, a time limit and verbose printing are accepted at setup and
+    through update_settings; code generation and the derivative API still
+    raise NotImplementedError, and a wrong-length update OSQPException."""
     P, q, A, l, u = problems.basic_qp()
-    for bad in (dict(polishing=True), dict(time_limit=1.0), dict(verbose=True)):
+    for opt in (dict(polishing=True), dict(time_limit=1.0), dict(verbose=True)):
         s = osqp_tpu_torch.OSQP(device='cpu')
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            s.setup(P=P, q=q, A=A, l=l, u=u, **bad)
+        s.setup(P=P, q=q, A=A, l=l, u=u, **{'verbose': False, **opt})
+        assert s.solve(raise_error=True).info.status == 'solved'
     s = osqp_tpu_torch.OSQP(device='cpu')
     s.setup(P=P, q=q, A=A, l=l, u=u, verbose=False)
-    with pytest.raises(NotImplementedError, match='polish'):
-        s.update_settings(polishing=True)
+    s.update_settings(polishing=True, time_limit=1.0)
+    assert s.solve(raise_error=True).info.status_polish == 1
     with pytest.raises(NotImplementedError, match='codegen'):
         s.codegen('out')
     with pytest.raises(NotImplementedError, match='derivatives'):
