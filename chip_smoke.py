@@ -11,16 +11,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. K1 (shared_epoch) against its plain PyTorch version on the card, one epoch
    from the same state, at the batched path's shapes: B=4096, n=32, m=48
    (the batched condensed-MPC headline) in f32 and f64, f32 at B=1024,
-   n=128, m=192, and f64 at a ragged B=333, n=13, m=19; with each launch's
-   plan, the columns it iterates, and the kernel's (device time and CUDA
-   events over back-to-back launches), the plain version's and the unfused
-   torch epoch's device times;
+   n=128, m=192, and f64 at a ragged B=333, n=13, m=19; then its reduced
+   iteration precisions, iter_prec 'high' and 'default' (the tensor-core
+   product), in f32 at the headline, at n=128, m=192 and at the ragged
+   shape, each at K=1 and K=25; with each launch's plan, the columns it
+   iterates, and the kernel's (device time at K=25 and K=0, and CUDA events
+   over back-to-back launches), the plain version's and the unfused torch
+   epoch's (in the same mode) device times;
 4. the batched main path end to end: BatchedOSQP setup, cold solve, then a
    10-step warm MPC rollout (update(q) with q + 0.01 noise, then solve) at
    the headline shape in f32, eps 1e-3.  Every instance must be solved, every
    returned solution must pass its termination test recomputed on the host in
    float64, 64 instances must lie near the port's own float64 CPU optimum at
-   every step, and K1 must have launched; then its profile;
+   every step, and K1 must have launched; then its profile.  Then the same
+   rollout with iter_prec='high' (every instance solved, the float64 host
+   check, K1 launched, and its profile), and one cold solve with
+   iter_prec='default' and max_iter 500, held to the safety contract (only
+   solved, solved-inaccurate or max-iter outcomes, and every solved
+   instance passes its host check);
 5. K2 (dia_matvec) against its plain PyTorch version on the card: the sparse
    path's own DIA operators at n = 2^20 (P with 3 bands, A and A' with 2) in
    f32 and f64, gram_diag in f64 with a 0/1 mask / delta weight (as the
@@ -71,12 +79,12 @@ ROOT = Path(__file__).resolve().parent
 
 # Peak rates of the cards this may run on (NVIDIA data sheets, dense):
 # (fp32 FLOP/s on the CUDA cores, fp64 FLOP/s with the tensor cores' DMMA,
-# memory bytes/s).  Bounds take the card's peak for the type, whatever units
-# the kernel itself uses.
+# memory bytes/s, bf16 FLOP/s on the tensor cores).  Bounds take the card's
+# peak for the type, whatever units the kernel itself uses.
 PEAKS = {
-    'H100 PCIe': (51.2e12, 51.2e12, 2.0e12),
-    'H100 NVL': (60e12, 60e12, 3.9e12),
-    'H100': (67e12, 67e12, 3.35e12),  # SXM5
+    'H100 PCIe': (51.2e12, 51.2e12, 2.0e12, 756e12),
+    'H100 NVL': (60e12, 60e12, 3.9e12, 835e12),
+    'H100': (67e12, 67e12, 3.35e12, 989e12),  # SXM5
 }
 
 HEADLINE = (4096, 32, 48)
@@ -122,29 +130,44 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps, name=None, flush=None):
+def device_ms(fn, reps, name=None, flush=None, tries=3):
     """Device time of one call of ``fn``: the summed durations of the device
     kernels and copies it runs (only those whose name holds ``name``, when
     given), over ``reps`` calls under torch.profiler, after a warm-up.  Unlike
     ``cuda_ms`` this leaves out the host's time between launches.  ``flush``
-    runs before each call, outside the count (an L2 flush)."""
+    runs before each call, outside the count (an L2 flush).  With ``name``,
+    ``fn`` launches that kernel once, and the time is the mean over the
+    launches the profiler recorded: a trace can drop records (1 of 50 or 17
+    of 20 have gone missing), which a sum over ``reps`` would read as a
+    shorter kernel.  A profile that recorded fewer than half of them is
+    taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-           and (name is None or name in e.key)]
-    total = sum(e.self_device_time_total for e in evs)
-    if total <= 0:
-        raise AssertionError(f'the profiler recorded no device time for {name or fn}')
-    return total / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (name is None or name in e.key)]
+        total = sum(e.self_device_time_total for e in evs)
+        if total <= 0:
+            raise AssertionError(f'the profiler recorded no device time for {name or fn}')
+        if name is None:
+            return total / 1e3 / reps
+        recorded = sum(e.count for e in evs)
+        if 2 * recorded >= reps:
+            return total / 1e3 / recorded
+        print(f'device_ms: the profiler recorded {recorded} of {reps} launches of {name}; '
+              'profiling again', flush=True)
+    raise AssertionError(f'the profiler recorded fewer than half of {reps} launches of {name} '
+                         f'in each of {tries} profiles (the last: {recorded})')
 
 
 def epoch_inputs(B, n, m, dtype, seed):
@@ -191,7 +214,8 @@ def unfused_epoch(fixed, state, sc, ctx):
     F, CH, At, rvec, rinv, D, Dinv, E, Einv, c0, Q, L, U = fixed
     S0, dX0, dY0, fS, fdX, fdY, status = state
     n, m = Q.shape[0], L.shape[0]
-    S, dX, dY = se.affine_iterations(F, c0, rvec, rinv, L, U, S0, dX0, dY0, sc.alpha, sc.K)
+    S, dX, dY = se.affine_iterations(F, c0, rvec, rinv, L, U, S0, dX0, dY0, sc.alpha, sc.K,
+                                     sc.iter_prec)
     active = status == se.UNSOLVED
     a2 = active[None]
     S = torch.where(a2, S, S0)
@@ -208,19 +232,24 @@ def unfused_epoch(fixed, state, sc, ctx):
 _OUT_NAMES = ('S', 'dX', 'dY', 'fS', 'fdX', 'fdY', 'status', 'pri', 'dua', 'obj', 'dobj')
 
 
-def compare(got, want, tol):
-    """Statuses identical; every other output within ``tol`` times the
-    larger of 1 and the state's magnitude, with non-finite entries (the
-    objective of infeasible or non-convex columns) in the same places.
-    Returns the largest absolute difference."""
-    if not torch.equal(got[6], want[6]):
-        bad = int((got[6] != want[6]).sum())
+def compare(got, want, tol, status_share=1.0):
+    """Statuses identical (in at least ``status_share`` of the columns); every
+    other output within ``tol`` times the larger of 1 and the state's
+    magnitude, with non-finite entries (the objective of infeasible or
+    non-convex columns) in the same places: the state S, dX, dY in every
+    column, the captures and the check's results in the columns whose
+    statuses agree.  Returns the largest absolute difference."""
+    same = got[6] == want[6]
+    bad = int((~same).sum())
+    if bad > (1 - status_share) * same.numel():
         raise AssertionError(f'statuses differ in {bad} columns')
     scale = max(1.0, float(want[0].abs().max()))
     worst = 0.0
-    for name, g, w in zip(_OUT_NAMES, got, want):
+    for k, (name, g, w) in enumerate(zip(_OUT_NAMES, got, want)):
         if name == 'status':
             continue
+        if k >= 3:  # per-column results: where the statuses agree
+            g, w = (g[:, same], w[:, same]) if g.dim() == 2 else (g[same], w[same])
         fin = torch.isfinite(w) & (w.abs() < 1e20)
         if not torch.equal(fin, torch.isfinite(g) & (g.abs() < 1e20)):
             raise AssertionError(f'{name}: non-finite entries differ')
@@ -233,17 +262,38 @@ def compare(got, want, tol):
     return worst
 
 
-def epoch_bound_ms(B, n, m, itemsize, n_active, peak_flops, peak_bytes):
+def check_own_state(fixed, state, sc, got):
+    """The kernel's statuses are those the plain version's check gives the
+    kernel's own iterates (an epoch of K=0 from them): where the reduced
+    modes' statuses differ from the plain epoch's, the iterates moved, not
+    the check.  Raises otherwise."""
+    from osqp_tpu_torch.ops import shared_epoch as se
+
+    own = se.shared_epoch_plain(*fixed, *got[:3], *state[3:], sc._replace(K=0))
+    if not torch.equal(own[6], got[6]):
+        raise AssertionError(f'{int((own[6] != got[6]).sum())} statuses differ from the plain '
+                             "check of the kernel's own iterates")
+
+
+def epoch_bound_ms(B, n, m, itemsize, n_active, peak_flops, peak_bytes, passes=0,
+                   tensor_flops=None):
     """Least time for one epoch: iterations of the active columns plus the
     termination check of every column, against one read of each input and
-    one write of each output."""
+    one write of each output.  ``passes`` bfloat16 products per iteration
+    (3 for 'high', 1 for 'default') take the tensor cores' ``tensor_flops``;
+    with 0 ('highest') the iterations take ``peak_flops`` like the check."""
     nm, N2 = n + m, n + 2 * m
-    flops = K * 2 * nm * N2 * n_active + (4 * nm * n + 4 * n * m) * B
+    iters = K * 2 * nm * N2 * n_active
+    check = (4 * nm * n + 4 * n * m) * B
     state = (2 * N2 + 2 * n + 2 * m) * B  # S, fS, dX, dY, fdX, fdY
     reads = state + (nm + n + 2 * m) * B + nm * N2 + nm * n + n * m + 2 * n + 4 * m
     writes = state + 4 * B
     nbytes = (reads + writes) * itemsize + 2 * 4 * B  # + status in and out (int32)
-    t_ops, t_bytes = flops / peak_flops, nbytes / peak_bytes
+    if passes:
+        t_ops = passes * iters / tensor_flops + check / peak_flops
+    else:
+        t_ops = (iters + check) / peak_flops
+    t_bytes = nbytes / peak_bytes
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes else 'bytes')
 
 
@@ -260,82 +310,152 @@ def iterated_columns(status, tb):
     return int(busy[tile].sum())
 
 
-def kernel_phase(card):
-    """K1 against its plain version at the four shapes; each row with the
-    launch's plan, the columns it iterates, the kernel's device time at K=25
-    and at K=0 (merge, check and capture only), CUDA events over
-    back-to-back launches, and the plain and unfused epochs' device times."""
+# The reduced modes' bfloat16 passes per iteration.
+PASSES = {'highest': 0, 'high': 3, 'default': 1}
+SLAB = (1024, 128, 192)
+RAGGED = (333, 13, 19)
+
+
+def k1_row(card, dtype, shape, tol, iter_prec='highest'):
+    """K1 against its plain version at one shape and mode: the launch's plan,
+    the columns it iterates, the kernel's device time at K=25 and at K=0
+    (merge, check and capture only), CUDA events over back-to-back launches,
+    and the plain and unfused epochs' device times.  In the reduced modes
+    also one iteration (K=1), held to 1e-5 of the state's scale.  At K=25 the
+    tensor cores' sums, in another order than the plain version's, move the
+    iterates of the reduced modes by more than an ulp, so a column at the
+    edge of its termination test may stop an epoch apart: statuses must
+    agree in 99.9% of the columns ('high') or 99% ('default'), and every
+    status must be the plain check's of the kernel's own iterates
+    (``check_own_state``).  'default' is also held loosely in value: one
+    bfloat16 pass turns a one-ulp difference in S into 2^-8 of that element,
+    so the two drift apart by about 4e-3 relative; the state must lie within
+    ``tol`` of its scale."""
     from osqp_tpu_torch.ops import shared_epoch as se
 
-    f32_peak, f64_peak, mem_peak = peaks(card)
+    f32_peak, f64_peak, mem_peak, bf16_peak = peaks(card)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    rows = []
-    shapes = ((torch.float32, HEADLINE, 2e-4), (torch.float32, (1024, 128, 192), 2e-4),
-              (torch.float64, (333, 13, 19), 1e-9), (torch.float64, HEADLINE, 1e-9))
+    B, n, m = shape
+    fixed, state, sc, ctx = epoch_inputs(B, n, m, dtype, seed=0)
+    sc = sc._replace(iter_prec=iter_prec)
+    halves = se.ITER_PRECS[iter_prec]
+    share = {'highest': 1.0, 'high': 0.999, 'default': 0.99}[iter_prec]
+    item = torch.empty((), dtype=dtype).element_size()
+    want = se.shared_epoch_plain(*fixed, *state, sc)
+    unf = unfused_epoch(fixed, state, sc, ctx)
+    compare(unf, want, 2e-4 if dtype == torch.float32 else 1e-9)
+    plain_ms = device_ms(lambda: se.shared_epoch_plain(*fixed, *state, sc), 5)
+    lib_ms = device_ms(lambda: unfused_epoch(fixed, state, sc, ctx), 5)
+    n_active = int((state[6] == se.UNSOLVED).sum())
+    bound, by = epoch_bound_ms(B, n, m, item, n_active,
+                               f32_peak if dtype == torch.float32 else f64_peak, mem_peak,
+                               PASSES[iter_prec], bf16_peak)
+    p = se.plan_tile(n, m, B, item, n_sm, halves)
+    plan = dict(p._asdict(), f_mode='resident' if p.ks == n + 2 * m else 'slab',
+                smem=se.smem_bytes(n, m, p.tb, p.ks, item, halves))
+    row = dict(iter_prec=iter_prec, dtype=str(dtype).replace('torch.', ''), B=B, n=n, m=m)
+    if halves:
+        sc1 = sc._replace(K=1)
+        got1 = se.shared_epoch(*fixed, *state, sc1)
+        torch.cuda.synchronize()
+        row['max_abs_err_K1'] = compare(got1, se.shared_epoch_plain(*fixed, *state, sc1), 1e-5)
+    got = se.shared_epoch(*fixed, *state, sc)
+    torch.cuda.synchronize()
+    err = compare(got, want, tol, share)
+    if halves:
+        check_own_state(fixed, state, sc, got)
+    reps = 20
+    kern = lambda: se.shared_epoch(*fixed, *state, sc)  # noqa: E731
+    sc0 = sc._replace(K=0)
+    ms = device_ms(kern, reps, name='shared_epoch_kernel')
+    ms_k0 = device_ms(lambda: se.shared_epoch(*fixed, *state, sc0), reps,
+                      name='shared_epoch_kernel')
+    events_ms = cuda_ms(kern, reps)
+    row.update(active=n_active, iterated_cols=iterated_columns(state[6], p.tb), plan=plan,
+               max_abs_err=err, tol=tol, status_mismatch=int((got[6] != want[6]).sum()),
+               state_err=max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])),
+               ms=ms, ms_K0=ms_k0, events_ms=events_ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    print('shared_epoch vs plain:', json.dumps(row), flush=True)
+    return row
+
+
+def kernel_phase(card):
+    """K1 against its plain version: 'highest' at the four shapes, then the
+    reduced modes in f32 at the headline, slab and ragged shapes."""
     # tolerances: f32 sums run in another order and with FMA contraction in
     # the kernel; over 25 iterations of a nonexpansive map that stays within
     # a few 1e-6 of the state's scale, so 2e-4 leaves room; f64 the same at
-    # 1e-9.
-    for dtype, (B, n, m), tol in shapes:
-        fixed, state, sc, ctx = epoch_inputs(B, n, m, dtype, seed=0)
-        item = torch.empty((), dtype=dtype).element_size()
-        want = se.shared_epoch_plain(*fixed, *state, sc)
-        unf = unfused_epoch(fixed, state, sc, ctx)
-        compare(unf, want, tol)
-        plain_ms = device_ms(lambda: se.shared_epoch_plain(*fixed, *state, sc), 5)
-        lib_ms = device_ms(lambda: unfused_epoch(fixed, state, sc, ctx), 5)
-        n_active = int((state[6] == se.UNSOLVED).sum())
-        bound, by = epoch_bound_ms(B, n, m, item, n_active,
-                                   f32_peak if dtype == torch.float32 else f64_peak, mem_peak)
-        p = se.plan_tile(n, m, B, item, n_sm)
-        plan = dict(p._asdict(), f_mode='resident' if p.ks == n + 2 * m else 'slab',
-                    smem=se.smem_bytes(n, m, p.tb, p.ks, item))
-        got = se.shared_epoch(*fixed, *state, sc)
-        torch.cuda.synchronize()
-        err = compare(got, want, tol)
-        reps = 20
-        kern = lambda: se.shared_epoch(*fixed, *state, sc)  # noqa: E731
-        sc0 = sc._replace(K=0)
-        ms = device_ms(kern, reps, name='shared_epoch_kernel')
-        ms_k0 = device_ms(lambda: se.shared_epoch(*fixed, *state, sc0), reps,
-                          name='shared_epoch_kernel')
-        events_ms = cuda_ms(kern, reps)
-        row = dict(dtype=str(dtype).replace('torch.', ''), B=B, n=n, m=m, active=n_active,
-                   iterated_cols=iterated_columns(state[6], p.tb), plan=plan,
-                   max_abs_err=err, tol=tol,
-                   state_err=max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])),
-                   ms=ms, ms_K0=ms_k0, events_ms=events_ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
-        print('shared_epoch vs plain:', json.dumps(row), flush=True)
-        rows.append(row)
+    # 1e-9.  'high' keeps 2e-4 (its lo halves absorb a one-ulp difference in
+    # S to 2^-17); 'default' is held to 5e-2 (see k1_row).
+    rows = [k1_row(card, dtype, shape, tol) for dtype, shape, tol in (
+        (torch.float32, HEADLINE, 2e-4), (torch.float32, SLAB, 2e-4),
+        (torch.float64, RAGGED, 1e-9), (torch.float64, HEADLINE, 1e-9))]
+    for iter_prec, tol in (('high', 2e-4), ('default', 5e-2)):
+        rows += [k1_row(card, torch.float32, shape, tol, iter_prec)
+                 for shape in (HEADLINE, SLAB, RAGGED)]
     return rows
 
 
-def main_path():
-    """BatchedOSQP setup, cold solve and the 10-step warm rollout at the
-    headline shape, f32 on the card.  Returns the run's numbers."""
+def main_path(iter_prec='highest', steps=STEPS, **over):
+    """BatchedOSQP setup, cold solve and a ``steps``-step warm rollout at the
+    headline shape, f32 on the card, in ``iter_prec``.  Returns the run's
+    numbers."""
     from osqp_tpu_torch import BatchedOSQP
 
     B, n, m = HEADLINE
     P, q, A, l, u = build_shared_problems(B, n, m, seed=0)
     noise = np.random.default_rng(1).standard_normal((STEPS, B, n))
-    kw = dict(eps_abs=EPS, eps_rel=EPS, verbose=False)
+    kw = dict(eps_abs=EPS, eps_rel=EPS, verbose=False, **over)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    s = BatchedOSQP(dtype=torch.float32, device=DEV)
+    s = BatchedOSQP(dtype=torch.float32, device=DEV, iter_prec=iter_prec)
     s.setup(P, q, A, l, u, **kw)
     r = s.solve()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     results = [r]
-    for k in range(STEPS):
+    for k in range(steps):
         s.update(q=q + 0.01 * noise[k])
         results.append(s.solve())
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return dict(results=results, setup_cold_s=t1 - t0, warm_s=t2 - t1, P=P, q=q, A=A, l=l,
                 u=u, noise=noise, kw=kw, solver=s)
+
+
+def batched_summary(run, iter_prec, steps, launches):
+    """Checks of one batched main-path run and its numbers.  K1 must have
+    launched; every returned solution must pass its float64 host check.
+    'highest' and 'high' must solve every instance of every step, and
+    'highest' lie near the float64 optimum (reference_check); 'default' is
+    held to the safety contract: only solved, solved-inaccurate or max-iter
+    outcomes."""
+    if launches <= 0:
+        raise AssertionError(f'the batched main path ({iter_prec}) never launched the '
+                             'shared_epoch kernel')
+    statuses = np.stack([r.info.status_val for r in run['results']])
+    if iter_prec == 'default':
+        if not np.isin(statuses, (1, 2, 7)).all():
+            raise AssertionError(f"'default': outcomes {np.unique(statuses)}")
+    elif not (statuses == 1).all():
+        raise AssertionError(f'{iter_prec}: {int((statuses != 1).sum())} instance-solves '
+                             'not solved')
+    B = HEADLINE[0]
+    iters = np.stack([r.info.iter for r in run['results']])
+    out = dict(
+        iter_prec=iter_prec, B=B, n=HEADLINE[1], m=HEADLINE[2], eps=EPS, dtype='float32',
+        steps=steps, setup_and_cold_solve_s=run['setup_cold_s'],
+        mean_iters_cold=float(iters[0].mean()), max_iters=int(iters.max()),
+        kernel_launches=launches, residual_over_bound=residual_check(run),
+        statuses={int(k): int(v) for k, v in zip(*np.unique(statuses, return_counts=True))})
+    if steps:
+        out.update(warm_rollout_s=run['warm_s'], warm_solves_per_s=B * steps / run['warm_s'],
+                   mean_iters_warm=float(iters[1:].mean()))
+    if iter_prec == 'highest':
+        out['x_err_vs_f64_optimum'] = reference_check(run)
+    return out
 
 
 def profile_rollout(run):
@@ -376,18 +496,23 @@ def residual_check(run):
     accepted by, recomputed on the host in float64 from the returned x and
     y: ||Ax - proj(Ax)|| <= eps_abs + eps_rel max(||Ax||, ||proj(Ax)||) and
     ||Px + q + A'y|| <= eps_abs + eps_rel max(||Px||, ||A'y||, ||q||), in the
-    inf-norm.  The solver tests ||Ax - z|| with z in [l, u], which bounds the
-    first from above; 5% and 1e-4 of slack cover the float32 rounding of the
-    returned iterates.  Returns the largest ratio of residual to bound."""
+    inf-norm, at eps for solved instances and 10 eps for solved-inaccurate
+    ones (max-iter instances are not held).  The solver tests ||Ax - z||
+    with z in [l, u], which bounds the first from above; 5% and 1e-4 of
+    slack cover the float32 rounding of the returned iterates.  Returns the
+    largest ratio of residual to bound."""
     P, A, l, u, q = run['P'], run['A'], run['l'], run['u'], run['q']
-    eps = run['kw']['eps_abs']
     worst = 0.0
     for k, r in enumerate(run['results']):
-        qk = q if k == 0 else q + 0.01 * run['noise'][k - 1]
-        x = r.x.astype(np.float64)
-        y = r.y.astype(np.float64)
+        held = np.isin(r.info.status_val, (1, 2))
+        if not held.any():
+            continue
+        eps = np.where(r.info.status_val[held] == 2, 10.0, 1.0) * run['kw']['eps_abs']
+        qk = (q if k == 0 else q + 0.01 * run['noise'][k - 1])[held]
+        x = r.x[held].astype(np.float64)
+        y = r.y[held].astype(np.float64)
         Ax = x @ A.T
-        proj = np.clip(Ax, l, u)
+        proj = np.clip(Ax, l[held], u[held])
         Px, Aty = x @ P.T, y @ A
 
         def nrm(V):
@@ -495,7 +620,7 @@ def dia_phase(card):
     from osqp_tpu_torch.ops import spmv
     from osqp_tpu_torch.utils.scaling_host import ruiz_scale_scipy
 
-    f32_peak, f64_peak, mem_peak = peaks(card)
+    f32_peak, f64_peak, mem_peak, _ = peaks(card)
     P, q, A, l, u = banded_qp(SPARSE_N, seed=0)
     P_s, A_s, *_ = ruiz_scale_scipy(P, A, q, l, u, 10)
     rng = np.random.default_rng(7)
@@ -1019,29 +1144,25 @@ def main():
     # 3. K1 against its plain version
     rows = kernel_phase(kind)
 
-    # 4. the batched main path, with the launch counts read around it
-    se.launches = dm.launches = 0
-    run = main_path()
-    launches = se.launches
-    if launches <= 0:
-        raise AssertionError('the batched main path never launched the shared_epoch kernel')
-    statuses = np.stack([r.info.status_val for r in run['results']])
-    if not (statuses == 1).all():
-        raise AssertionError(f'{int((statuses != 1).sum())} instance-solves not solved')
-    res_ratio = residual_check(run)
-    ref_err = reference_check(run)
-    B = HEADLINE[0]
-    iters = np.stack([r.info.iter for r in run['results']])
-    summary = dict(
-        B=B, n=HEADLINE[1], m=HEADLINE[2], eps=EPS, dtype='float32', steps=STEPS,
-        setup_and_cold_solve_s=run['setup_cold_s'], warm_rollout_s=run['warm_s'],
-        warm_solves_per_s=B * STEPS / run['warm_s'],
-        mean_iters_cold=float(iters[0].mean()), mean_iters_warm=float(iters[1:].mean()),
-        max_iters=int(iters.max()), kernel_launches=launches,
-        residual_over_bound=res_ratio, x_err_vs_f64_optimum=ref_err,
-    )
-    print('main path:', json.dumps(summary), flush=True)
-    print('warm rollout profile:', json.dumps(profile_rollout(run)), flush=True)
+    # 4. the batched main path in each mode, with the launch counts read
+    # around each run
+    batched = {}
+    for iter_prec, steps, over in (('highest', STEPS, {}), ('high', STEPS, {}),
+                                   ('default', 0, dict(max_iter=500))):
+        se.launches = dm.launches = 0
+        run = main_path(iter_prec, steps, **over)
+        summary = batched_summary(run, iter_prec, steps, se.launches)
+        print(f'main path ({iter_prec}):', json.dumps(summary), flush=True)
+        if steps:
+            prof = profile_rollout(run)
+            summary['profile'] = prof
+            print(f'warm rollout profile ({iter_prec}):', json.dumps(prof), flush=True)
+        batched[iter_prec] = summary
+    launches = batched['highest']['kernel_launches']
+    print('main path iterations by mode:', json.dumps({
+        k: dict(mean_iters_cold=v['mean_iters_cold'], mean_iters_warm=v.get('mean_iters_warm'),
+                warm_solves_per_s=v.get('warm_solves_per_s')) for k, v in batched.items()}),
+        flush=True)
 
     # 5. K2 against its plain version
     dia_rows = dia_phase(kind)
@@ -1082,13 +1203,23 @@ def main():
     # 8. the kernels line and the result line
     head = rows[0]
     dia_head = dia_rows[0]  # P @ v, float32, n = 2^20: the sparse path's widest operator
+    modes = {}
+    for iter_prec in ('high', 'default'):  # each at the f32 headline
+        r = next(r for r in rows if r['iter_prec'] == iter_prec)
+        modes[iter_prec] = dict(
+            launches=batched[iter_prec]['kernel_launches'], max_abs_err=r['max_abs_err'],
+            max_abs_err_K1=r['max_abs_err_K1'], status_mismatch=r['status_mismatch'],
+            ms=r['ms'], plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
+            bound_by=r['bound_by'], library_ms=r['library_ms'])
+    hi_rows = [r for r in rows if r['iter_prec'] == 'highest']
     kernels = [dict(
         name='shared_epoch', route='cuda', source='osqp_tpu_torch/ops/csrc/shared_epoch.cu',
         replaces='osqp_tpu/ops/shared_epoch.py:75', launches=launches,
-        max_abs_err=max(r['max_abs_err'] for r in rows), max_err=max(r['max_abs_err'] for r in rows),
+        max_abs_err=max(r['max_abs_err'] for r in hi_rows),
+        max_err=max(r['max_abs_err'] for r in hi_rows),
         ms=head['ms'], events_ms=head['events_ms'], plain_ms=head['plain_ms'],
         bound_ms=head['bound_ms'], bound_by=head['bound_by'], library_ms=head['library_ms'],
-        shape=f"B={head['B']} n={head['n']} m={head['m']} {head['dtype']}",
+        shape=f"B={head['B']} n={head['n']} m={head['m']} {head['dtype']}", modes=modes,
     ), dict(
         name='dia_matvec', route='cuda', source='osqp_tpu_torch/ops/csrc/dia_matvec.cu',
         replaces='tools/proto_dia_pallas.py:25', plain_of='osqp_tpu/ops/spmv.py:79',

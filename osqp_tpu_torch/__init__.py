@@ -18,5 +18,8 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision('highest')
 
 from .batch import BatchedOSQP  # noqa: E402,F401
-from .constants import SolverStatus, status_string  # noqa: E402,F401
-from .interface import OSQP  # noqa: E402,F401
+from .constants import SolverError, SolverStatus, constant, status_string  # noqa: E402,F401
+from .exceptions import OSQPException  # noqa: E402,F401
+from .interface import OSQP, OSQPSettings  # noqa: E402,F401
+
+__version__ = '1.0.0.dev0'

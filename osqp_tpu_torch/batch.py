@@ -16,6 +16,7 @@ import torch
 from .batch_shared import settings_scale_q, shared_setup, shared_solve
 from .constants import status_string
 from .device import resolve_device
+from .ops.shared_epoch import iter_halves
 from .settings import OracleSettings, core_settings
 
 _VMAP_LATER = ("the vmap engine (per-instance P or A) is not ported yet; it comes in a "
@@ -30,9 +31,15 @@ class BatchedOSQP:
     otherwise; raises when no device is given and CUDA is absent.
 
     ``fused`` (one fused-epoch kernel launch per epoch), ``compact``
-    (``'auto'`` or ``'0'``) and ``iter_prec`` (``'highest'``) are the JAX
-    package's ``OSQP_TPU_FUSED_SHARED``, ``OSQP_TPU_COMPACT`` and
-    ``OSQP_TPU_ITER_PRECISION`` as arguments.
+    (``'auto'`` or ``'0'``) and ``iter_prec`` are the JAX package's
+    ``OSQP_TPU_FUSED_SHARED``, ``OSQP_TPU_COMPACT`` and
+    ``OSQP_TPU_ITER_PRECISION`` as arguments.  ``iter_prec`` sets the
+    precision of the ADMM iteration's product: ``'highest'`` (exact, either
+    dtype), ``'high'`` (three bfloat16 passes, near float32) or ``'default'``
+    (one bfloat16 pass, slower to converge); the last two need
+    ``dtype=torch.float32`` and run on the card's tensor cores.  The
+    termination check stays at full precision in every mode, so a reduced
+    mode may cost iterations but never accepts an unconverged instance.
     """
 
     def __init__(self, dtype=torch.float64, device=None, engine='auto', *,
@@ -41,6 +48,7 @@ class BatchedOSQP:
             raise ValueError(f"engine must be 'auto', 'shared' or 'vmap', got {engine!r}")
         if engine == 'vmap':
             raise NotImplementedError(_VMAP_LATER)
+        iter_halves(iter_prec, dtype)
         self._dtype = dtype
         self._device = resolve_device(device)
         self._pending = {}

@@ -29,7 +29,7 @@ import torch
 
 from .constants import RHO_MAX, RHO_MIN, SolverStatus
 from .device import resolve_device
-from .ops.shared_epoch import affine_iterations, epoch_scalars, shared_epoch
+from .ops.shared_epoch import affine_iterations, epoch_scalars, iter_halves, shared_epoch
 from .settings import CoreSettings, OracleSettings, np_dtype
 from .solver import core
 from .solver.core import Scaling
@@ -249,12 +249,12 @@ def shared_solve(P, A, Q, L_b, U_b, scal: Scaling, settings: CoreSettings,
     ``fused``: one fused-epoch call per epoch (the CUDA kernel on CUDA
     tensors, its plain version on CPU tensors); ``False`` runs the unfused
     torch epoch.  ``compact``: ``'auto'`` finishes the straggler tail in a
-    narrow buffer once it fits, ``'0'`` never does.  ``iter_prec``: only
-    ``'highest'`` (IEEE fp32 or fp64 iterations)."""
-    if iter_prec != 'highest':
-        raise NotImplementedError(
-            f"iter_prec={iter_prec!r}: only 'highest' is ported; the TF32 modes "
-            "'high' and 'default' are a later slice of the port")
+    narrow buffer once it fits, ``'0'`` never does.  ``iter_prec``: the
+    iteration product's precision, ``'highest'`` (IEEE, either dtype),
+    ``'high'`` (three bfloat16 passes) or ``'default'`` (one), the last two in
+    float32 only (``ops.shared_epoch.iter_halves``); fused and unfused epochs
+    compute the same product."""
+    iter_halves(iter_prec, Q.dtype)
     if compact not in ('auto', '0'):
         raise ValueError(f"compact must be 'auto' or '0', got {compact!r}")
     n, B = Q.shape
@@ -306,7 +306,7 @@ def shared_solve(P, A, Q, L_b, U_b, scal: Scaling, settings: CoreSettings,
         it = st.it + this_epoch
         active = st.status == _UNSOLVED
         if fused:
-            sc = epoch_scalars(settings, scal.c, scal.cinv, this_epoch)
+            sc = epoch_scalars(settings, scal.c, scal.cinv, this_epoch, iter_prec)
             (S, dX, dY, fS, fdX, fdY, status_new, pri, dua, obj, dobj) = shared_epoch(
                 st.F, CH, At, st.rho_vec, st.rho_inv,
                 scal.D, scal.Dinv, scal.E, scal.Einv,
@@ -316,7 +316,7 @@ def shared_solve(P, A, Q, L_b, U_b, scal: Scaling, settings: CoreSettings,
             st = replace(st, S=S, dX=dX, dY=dY, fS=fS, fdX=fdX, fdY=fdY, status=status_new)
         else:
             S, dX, dY = affine_iterations(st.F, st.c0, st.rho_vec, st.rho_inv, Lc, Uc,
-                                          st.S, st.dX, st.dY, alpha, this_epoch)
+                                          st.S, st.dX, st.dY, alpha, this_epoch, iter_prec)
             a2 = active[None]
             S = torch.where(a2, S, st.S)
             dX = torch.where(a2, dX, st.dX)

@@ -21,9 +21,15 @@ MAX_SCALING = 1e04
 OSQP_INFTY = 1e30
 OSQP_NAN = math.nan
 
+# Iterations between two rows of a verbose solve's console output.
+PRINT_INTERVAL = 200
+
 # Adaptive-rho interval used when ``adaptive_rho_interval == 0`` (a fixed
 # interval keeps solves deterministic).
 ADAPTIVE_RHO_FIXED = 100
+
+# Divergence guard used by the non-convexity residual check.
+OSQP_DIVERGENCE = OSQP_INFTY
 
 
 class SolverStatus(IntEnum):
@@ -89,3 +95,25 @@ _STATUS_STRINGS = {
 
 def status_string(status_val: int) -> str:
     return _STATUS_STRINGS.get(SolverStatus(int(status_val)), 'unknown')
+
+
+# Constants exposed by name, as the reference's extension module exposes them.
+_NAMED_CONSTANTS = {
+    'OSQP_INFTY': OSQP_INFTY,
+    'OSQP_NAN': OSQP_NAN,
+    'OSQP_MIN_SCALING': MIN_SCALING,
+    'OSQP_MAX_SCALING': MAX_SCALING,
+}
+
+
+def constant(which: str, algebra: str | None = None):
+    """The value of the solver constant named ``which``: a named value, or
+    the integer of a status, error or capability code.  ``algebra`` is
+    accepted for the JAX package's signature and not used (the port has one
+    backend).  Raises ``RuntimeError`` for an unknown name."""
+    if which in _NAMED_CONSTANTS:
+        return _NAMED_CONSTANTS[which]
+    for enum in (SolverStatus, SolverError, CapabilitiesType):
+        if which in enum.__members__:
+            return int(enum[which])
+    raise RuntimeError(f'Unknown constant {which}')

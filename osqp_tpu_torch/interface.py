@@ -24,6 +24,7 @@ from .constants import (
     OSQP_INFTY,
     PrecondType,
     SolverStatus,
+    constant,
 )
 from .device import resolve_device
 from .exceptions import OSQPException
@@ -238,6 +239,9 @@ class OSQP:
         return ('diagonal'
                 if self.settings.cg_precond == int(PrecondType.OSQP_DIAGONAL_PRECONDITIONER)
                 else None)
+
+    def constant(self, which):
+        return constant(which)
 
     # -- settings ----------------------------------------------------------
 

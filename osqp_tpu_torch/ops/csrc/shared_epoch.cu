@@ -50,15 +50,34 @@
 // The termination check runs its matvecs with the same routine.  Its column
 // reductions are split into independent tasks (a thread per task and
 // column), each in feature order, and one thread per column combines them.
-// All arithmetic is plain IEEE fp32 or fp64 on the CUDA cores (iter_prec
-// 'highest'); the products and the check's sums may be contracted to FMA.
-// Tiles whose columns have all terminated skip the iterations.  The ragged
-// batch edge is masked; nothing is padded in device memory.
+// The check is plain IEEE fp32 or fp64 on the CUDA cores in every mode; its
+// products and sums may be contracted to FMA.  Tiles whose columns have all
+// terminated skip the iterations.  The ragged batch edge is masked; nothing
+// is padded in device memory.
+//
+// Reduced iteration precision (float32 only; H bfloat16 halves, the JAX
+// kernel's iter_mode): 'high' (H = 2) computes F S as
+// F_hi S_hi + (F_hi S_lo + F_lo S_hi) and 'default' (H = 1) as F_hi S_hi,
+// where X_hi = bf16(X) and X_lo = bf16(X - X_hi), rounded to nearest even.
+// Each product of bfloat16 values is exact in fp32 and summed in fp32, as on
+// the TPU's matrix unit, by the tensor cores: mma.sync m16n8k16 bf16 tiles
+// with fp32 accumulators, one warp per 16-row, 8-column tile of V (up to
+// kMaxTiles of them).  F's halves are made while F is staged (once per epoch
+// when resident, per slab and iteration otherwise), row-major with rows
+// zero-padded to 16 and k to 16; the state's halves are rewritten from the
+// fp32 state, which stays fp32, in every iteration, column-major (k
+// contiguous).  Row strides are 8 bfloat16 past a multiple of 16, so each
+// fragment load (8 rows by 4 words per warp) hits 32 banks.  The epilogue
+// runs on each thread's accumulator fragment, element by element, with the
+// rounding of the fp32 path; the block's threads are rounded up to whole
+// warps.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cmath>
+#include <type_traits>
 
 namespace {
 
@@ -124,16 +143,29 @@ __host__ __device__ inline int w_stride(int nm, int size) {
   return r4 + ((want - r4 % mod) % mod + mod) % mod;
 }
 
+// Row stride, in 32-bit words, of a bfloat16 matrix of k columns in shared
+// memory: k rounded up to 16, plus 8 bfloat16 (4 words, so that the 8 rows of
+// a fragment load start in 8 different groups of 4 banks).
+__host__ __device__ inline int bf16_words(int k) { return (k + 15) / 16 * 8 + 4; }
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
 // Shared-memory layout of one block, in elements of T; each region is
-// rounded up to 16 bytes.  smem_bytes in ops/shared_epoch.py mirrors it (and
+// rounded up to 16 bytes.  H is the number of bfloat16 halves of the reduced
+// modes (0 in 'highest').  smem_bytes in ops/shared_epoch.py mirrors it (and
 // its test reads the region list below from this file).
-constexpr int kRegions = 13;
+constexpr int kRegions = 14;
 struct Layout {
   int off[kRegions + 1];
-  __host__ __device__ Layout(int n, int m, int TB, int KS, int LDW, int size) {
+  int MP, LDA2, LDK2;  // rows of V padded to 16; words per row of F's and S's halves
+  __host__ __device__ Layout(int n, int m, int TB, int KS, int LDW, int size, int H) {
     const int N2 = n + 2 * m, nm = n + m;
+    MP = (nm + 15) / 16 * 16;
+    LDA2 = bf16_words(KS);
+    LDK2 = bf16_words(N2);
     const int sizes[kRegions] = {
-        KS * LDW,  // W: F' k-major (resident or one slab), then [P; A]' and A''
+        imax(KS * LDW, H * MP * LDA2),  // W: F' k-major (resident or one slab), or F's
+                                        // halves, then [P; A]' and A''
         N2 * TB,   // S = [x; z; y]
         nm * TB,   // V: [P; A] x, then [P; A] dx (check only)
         n * TB,    // T: A' y, then A' dy (check only)
@@ -146,6 +178,7 @@ struct Layout {
         m,         // rho
         m,         // 1 / rho
         16 * TB,   // per-column partial results of the check
+        H * TB * LDK2,  // the state's bfloat16 halves, column-major
     };
     const int align = 16 / size;
     off[0] = 0;
@@ -314,6 +347,147 @@ __device__ void store_acc(const T (&acc)[4][TC], T* Out, int R, int TB, int g, i
 // rather than divide.
 __device__ __forceinline__ int log2i(int p) { return __ffs(p) - 1; }
 
+// ---- the reduced modes' tensor-core product (float32 only) ----
+
+constexpr int kMaxTiles = 4;  // 16 x 8 tiles of V per warp at most (_MAX_TILES)
+
+// The bfloat16 halves of x, as raw bits: hi = bf16(x), lo = bf16(x - hi),
+// both rounded to nearest even (x - hi is exact in fp32).
+__device__ __forceinline__ void split_bf16(float x, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(x);
+  hi = __bfloat16_as_ushort(h);
+  lo = __bfloat16_as_ushort(__float2bfloat16_rn(__fsub_rn(x, __bfloat162float(h))));
+}
+
+// sF[r, k] = halves of W[r, k0 + k] for r < MP and k < ksp (zero past R rows
+// and ks columns): W is (R, Kd) row-major fp32 in global memory; the hi half
+// is row-major with LDA2 words per row, the lo half (H = 2) follows it.  A
+// word is two k; consecutive threads take consecutive words, and each
+// thread has the 8 loads of its next 4 words in flight before it splits
+// them.  Used for the slabs of F, every iteration.
+template <int H>
+__device__ void stage_split(const float* __restrict__ W, int R, int Kd, int k0, int ks,
+                            int ksp, int MP, unsigned* sF, int LDA2) {
+  constexpr int kWords = 4;
+  unsigned* sF_lo = sF + MP * LDA2;
+  const int words = ksp / 2, total = MP * words;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kWords * blockDim.x) {
+    float v[kWords][2];
+    int at[kWords];
+#pragma unroll
+    for (int u = 0; u < kWords; ++u) {
+      const int i = i0 + u * blockDim.x, r = i / words, w = i - r * words, k = 2 * w;
+      at[u] = i < total ? r * LDA2 + w : -1;
+      const bool row_ok = i < total && r < R;
+      const float* p = W + (size_t)r * Kd + k0 + k;
+      v[u][0] = row_ok && k < ks ? __ldg(p) : 0.f;
+      v[u][1] = row_ok && k + 1 < ks ? __ldg(p + 1) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kWords; ++u) {
+      if (at[u] < 0) continue;
+      unsigned h0, l0, h1, l1;
+      split_bf16(v[u][0], h0, l0);
+      split_bf16(v[u][1], h1, l1);
+      sF[at[u]] = h0 | (h1 << 16);
+      if (H == 2) sF_lo[at[u]] = l0 | (l1 << 16);
+    }
+  }
+}
+
+// The state's halves, column-major: sSb[c, k] = halves of sS[k, c] for k < KP
+// (zero past N2), LDK2 words per column; the lo half (H = 2) follows.
+template <int H>
+__device__ void split_state(const float* sS, int N2, int KP, int TB, unsigned* sSb, int LDK2) {
+  unsigned* sSb_lo = sSb + TB * LDK2;
+  const int sh = log2i(TB);
+  for (int i = threadIdx.x; i < (KP / 2) * TB; i += blockDim.x) {
+    const int c = i & (TB - 1), w = i >> sh, k = 2 * w;
+    const float v0 = k < N2 ? sS[k * TB + c] : 0.f;
+    const float v1 = k + 1 < N2 ? sS[(k + 1) * TB + c] : 0.f;
+    unsigned h0, l0, h1, l1;
+    split_bf16(v0, h0, l0);
+    split_bf16(v1, h1, l1);
+    sSb[c * LDK2 + w] = h0 | (h1 << 16);
+    if (H == 2) sSb_lo[c * LDK2 + w] = l0 | (l1 << 16);
+  }
+}
+
+// d += a b on the tensor cores: a 16 x 16 bfloat16 tile (row-major), b 16 x 8
+// (column-major), d 16 x 8 fp32, in the fragment layouts of the PTX ISA.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A fragment: p at word (row r0 + gid, k word w0 + tig) of a row-major
+// matrix of LDA2 words per row; rows +8 and k +8 (4 words) complete it.
+__device__ __forceinline__ void ld_a(const unsigned* p, int LDA2, unsigned (&a)[4]) {
+  a[0] = p[0];
+  a[1] = p[8 * LDA2];
+  a[2] = p[4];
+  a[3] = p[8 * LDA2 + 4];
+}
+// B fragment: p at word (column gid, k word w0 + tig) of a column-major matrix.
+__device__ __forceinline__ void ld_b(const unsigned* p, unsigned (&b)[2]) {
+  b[0] = p[0];
+  b[1] = p[4];
+}
+
+// The iteration product of the reduced modes for the warp's tiles of V
+// (tile warp + j * warps, j < kMaxTiles; 16 rows by 8 columns each):
+// hh[j] = F_hi S_hi and, for H = 2, cx[j] = F_hi S_lo + F_lo S_hi, in fp32.
+// F is resident in sF (staged once per epoch) or streamed through it in
+// slabs of KS columns of k (a multiple of 16).  Every thread of the block
+// calls it (the slabs are staged by all); only whole warps exist.
+template <int H>
+__device__ void mma_product(const float* __restrict__ F, int nm, int N2, int MP, int KS,
+                            bool resident, unsigned* sF, int LDA2, const unsigned* sSb,
+                            int LDK2, int TB, float (&hh)[kMaxTiles][4],
+                            float (&cx)[kMaxTiles][4]) {
+#pragma unroll
+  for (int j = 0; j < kMaxTiles; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) hh[j][i] = cx[j][i] = 0.f;
+  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int sh = log2i(TB / 8), tiles = (MP / 16) << sh;
+  const unsigned* sSb_lo = sSb + TB * LDK2;
+  const unsigned* sF_lo = sF + MP * LDA2;
+  for (int k0 = 0; k0 < N2; k0 += KS) {
+    const int ks = min(KS, N2 - k0), kw_end = (ks + 15) / 16 * 8;
+    if (!resident) {
+      __syncthreads();  // the previous slab is done
+      stage_split<H>(F, nm, N2, k0, ks, 2 * kw_end, MP, sF, LDA2);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxTiles; ++j) {
+      const int t = warp + j * warps;
+      if (t >= tiles) continue;
+      const int mt = t >> sh, nt = t & ((1 << sh) - 1);
+      const int a_off = (mt * 16 + gid) * LDA2 + tig;
+      const int b_off = (nt * 8 + gid) * LDK2 + k0 / 2 + tig;
+      for (int kw = 0; kw < kw_end; kw += 8) {
+        unsigned a[4], b[2];
+        ld_a(sF + a_off + kw, LDA2, a);
+        ld_b(sSb + b_off + kw, b);
+        mma_bf16(hh[j], a, b);
+        if (H == 2) {
+          unsigned a_lo[4], b_lo[2];
+          ld_a(sF_lo + a_off + kw, LDA2, a_lo);
+          ld_b(sSb_lo + b_off + kw, b_lo);
+          mma_bf16(cx[j], a, b_lo);
+          mma_bf16(cx[j], a_lo, b);
+        }
+      }
+    }
+  }
+}
+
 // Start copying rows [0, rows) of a (rows, B) global array into a shared
 // tile, zero past the ragged edge; given `flag`, only the valid columns
 // whose flag is 0.  Complete after cp_async_wait and a barrier.
@@ -369,16 +543,19 @@ __device__ void capture_tile(T* __restrict__ G, int rows, int B, int col0, int n
   }
 }
 
-template <typename T, int TC>
+// H: the bfloat16 halves of the iteration product (0: 'highest', exact in
+// T; 1: 'default'; 2: 'high'; float32 only).
+template <typename T, int TC, int H>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 shared_epoch_kernel(int n, int m, int B, int TB, int KS, Scalars<T> sc, Args<T> a) {
+  static_assert(H == 0 || std::is_same<T, float>::value, "reduced modes are float32 only");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_active[32];
   __shared__ int s_newly[32];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int nm = n + m, N2 = n + 2 * m;
   const int LDW = w_stride(nm, sizeof(T));
-  const Layout lay(n, m, TB, KS, LDW, sizeof(T));
+  const Layout lay(n, m, TB, KS, LDW, sizeof(T), H);
   T* sW = sm + lay.off[0];
   T* sS = sm + lay.off[1];
   T* sV = sm + lay.off[2];
@@ -421,12 +598,67 @@ shared_epoch_kernel(int n, int m, int B, int TB, int KS, Scalars<T> sc, Args<T> 
   copy_cols(a.fSo, a.fS, N2, B, col0, ncol, TB);
   copy_cols(a.fdXo, a.fdX, n, B, col0, ncol, TB);
   copy_cols(a.fdYo, a.fdY, m, B, col0, ncol, TB);
-  if (resident) stage_async(a.F, nm, N2, sW, LDW);
+  if (resident) {
+    if constexpr (H == 0)
+      stage_async(a.F, nm, N2, sW, LDW);
+    else  // F's bfloat16 halves, once for the epoch
+      stage_split<H>(a.F, nm, N2, 0, N2, (N2 + 15) / 16 * 16, lay.MP,
+                     reinterpret_cast<unsigned*>(sW), lay.LDA2);
+  }
   cp_async_wait();
   const int any_active = __syncthreads_or(my_active);
 
   // ---- 1. K ADMM iterations (affine form) ----
-  if (any_active) {
+  if constexpr (H != 0) {
+    if (any_active) {
+      const float alpha = sc.alpha;
+      const float one_m_alpha = 1.f - alpha;
+      unsigned* sF = reinterpret_cast<unsigned*>(sW);
+      unsigned* sSb = reinterpret_cast<unsigned*>(sm + lay.off[13]);
+      const int KP = (N2 + 15) / 16 * 16;
+      const int warp = tid >> 5, warps = blockDim.x >> 5, lane = tid & 31;
+      const int gid = lane >> 2, tig = lane & 3;
+      const int sh = log2i(TB / 8), tiles = (lay.MP / 16) << sh;
+      for (int it = 0; it < sc.K; ++it) {
+        split_state<H>(sS, N2, KP, TB, sSb, lay.LDK2);
+        __syncthreads();
+        float hh[kMaxTiles][4], cx[kMaxTiles][4];
+        mma_product<H>(a.F, nm, N2, lay.MP, KS, resident, sF, lay.LDA2, sSb, lay.LDK2, TB,
+                       hh, cx);
+        // each thread updates the elements of its accumulator fragments (rows
+        // gid and gid + 8, columns 2 tig and 2 tig + 1 of each tile); the
+        // product read only the halves, so sS is free to write
+#pragma unroll
+        for (int j = 0; j < kMaxTiles; ++j) {
+          const int t = warp + j * warps;
+          if (t >= tiles) continue;
+          const int mt = t >> sh, nt = t & ((1 << sh) - 1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = mt * 16 + gid + 8 * (e >> 1), col = nt * 8 + 2 * tig + (e & 1);
+            if (r >= nm) continue;
+            const float p = H == 2 ? add_rn(hh[j][e], cx[j][e]) : hh[j][e];
+            const float v = add_rn(p, sC0[r * TB + col]);
+            if (r < n) {
+              const float x = sS[r * TB + col];
+              const float xn = add_rn(mul_rn(alpha, v), mul_rn(one_m_alpha, x));
+              sS[r * TB + col] = xn;
+              sdX[r * TB + col] = sub_rn(xn, x);
+            } else {
+              const int jr = r - n, oj = jr * TB + col, oy = (nm + jr) * TB + col;
+              const float rho = sRho[jr], rhoinv = sRhoinv[jr], y = sS[oy];
+              const float zn = nmin(nmax(v, sL[oj]), sU[oj]);
+              const float yn = add_rn(y, mul_rn(rho, sub_rn(sub_rn(v, mul_rn(rhoinv, y)), zn)));
+              sS[r * TB + col] = zn;
+              sS[oy] = yn;
+              sdY[oj] = sub_rn(yn, y);
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+  } else if (any_active) {
     const T alpha = sc.alpha;
     const T one_m_alpha = T(1) - alpha;
     for (int it = 0; it < sc.K; ++it) {
@@ -703,29 +935,36 @@ shared_epoch_kernel(int n, int m, int B, int TB, int KS, Scalars<T> sc, Args<T> 
   capture_tile(a.fdYo, m, B, col0, ncol, sdY, TB, s_newly);
 }
 
-template <typename T, int TC>
+template <typename T, int TC, int H>
 cudaError_t start(int n, int m, int B, int TB, int KS, int threads, size_t smem,
                   const Scalars<T>& sc, const Args<T>& a, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(shared_epoch_kernel<T, TC>,
+  cudaError_t e = cudaFuncSetAttribute(shared_epoch_kernel<T, TC, H>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int grid = (B + TB - 1) / TB;
-  shared_epoch_kernel<T, TC><<<grid, threads, smem, stream>>>(n, m, B, TB, KS, sc, a);
+  shared_epoch_kernel<T, TC, H><<<grid, threads, smem, stream>>>(n, m, B, TB, KS, sc, a);
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch(int n, int m, int B, int TB, int TC, int KS, int K, int unscaled, int check_dualgap,
-           const void* scal, void* const* p, void* stream) {
+int launch(int n, int m, int B, int TB, int TC, int KS, int H, int K, int unscaled,
+           int check_dualgap, const void* scal, void* const* p, void* stream) {
   if (B == 0) return cudaSuccess;
   // the plan must be one this source can run
   const int nm = n + m, N2 = n + 2 * m;
-  const int threads = (nm + 3) / 4 * (TB / max(TC, 1));
+  int threads = (nm + 3) / 4 * (TB / max(TC, 1));
+  if (H != 0) threads = (threads + 31) / 32 * 32;  // whole warps for the mma tiles
   if (TB < 1 || TB > 32 || (TB & (TB - 1)) != 0 || (TC != 1 && TC != 2) || TC > TB ||
-      KS < 1 || KS > N2 || threads < TB || threads > kMaxThreads)
+      KS < 1 || KS > N2 || threads < TB || threads > kMaxThreads || H < 0 || H > 2)
     return cudaErrorInvalidValue;
+  if (H != 0) {  // float32, 8-column tiles, slabs of whole k tiles, kMaxTiles per warp
+    const int tiles = (nm + 15) / 16 * (TB / 8), warps = threads / 32;
+    if (!std::is_same<T, float>::value || TB < 8 || (KS < N2 && KS % 16 != 0) ||
+        (tiles + warps - 1) / warps > kMaxTiles)
+      return cudaErrorInvalidValue;
+  }
   const size_t smem =
-      (size_t)Layout(n, m, TB, KS, w_stride(nm, sizeof(T)), sizeof(T)).total() * sizeof(T);
+      (size_t)Layout(n, m, TB, KS, w_stride(nm, sizeof(T)), sizeof(T), H).total() * sizeof(T);
   const T* s = static_cast<const T*>(scal);
   Scalars<T> sc{s[0], s[1], s[2], s[3], s[4], s[5], s[6], K, unscaled, check_dualgap};
   Args<T> a;
@@ -742,21 +981,31 @@ int launch(int n, int m, int B, int TB, int TC, int KS, int K, int unscaled, int
   for (T** q : rows) *q = static_cast<T*>(p[k++]);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (TC == 1) return start<T, 1>(n, m, B, TB, KS, threads, smem, sc, a, st);
-  return start<T, 2>(n, m, B, TB, KS, threads, smem, sc, a, st);
+  if constexpr (std::is_same<T, float>::value) {
+    if (H == 1)
+      return TC == 1 ? start<T, 1, 1>(n, m, B, TB, KS, threads, smem, sc, a, st)
+                     : start<T, 2, 1>(n, m, B, TB, KS, threads, smem, sc, a, st);
+    if (H == 2)
+      return TC == 1 ? start<T, 1, 2>(n, m, B, TB, KS, threads, smem, sc, a, st)
+                     : start<T, 2, 2>(n, m, B, TB, KS, threads, smem, sc, a, st);
+  }
+  if (TC == 1) return start<T, 1, 0>(n, m, B, TB, KS, threads, smem, sc, a, st);
+  return start<T, 2, 0>(n, m, B, TB, KS, threads, smem, sc, a, st);
 }
 
 }  // namespace
 
 // C entry points.  The plan (TB batch columns per block, TC columns per
 // thread, KS rows of F' staged at a time) comes from plan_tile in
-// ops/shared_epoch.py; the launch takes the Layout's shared memory.  Pointer
-// order: scal (host: alpha, eps_abs, eps_rel, eps_prim_inf, eps_dual_inf, c,
-// cinv), then the 20 inputs F CH At rho_vec rho_inv D Dinv E Einv c0 Q L U S
-// dX dY fS fdX fdY status, then the 11 outputs S dX dY fS fdX fdY status pri
-// dua obj dobj, then the stream.  Returns the cudaError_t of the launch.
+// ops/shared_epoch.py; the launch takes the Layout's shared memory.  H is
+// the iteration product's bfloat16 halves (0 'highest', 1 'default', 2
+// 'high'; float32 only, else cudaErrorInvalidValue).  Pointer order: scal
+// (host: alpha, eps_abs, eps_rel, eps_prim_inf, eps_dual_inf, c, cinv), then
+// the 20 inputs F CH At rho_vec rho_inv D Dinv E Einv c0 Q L U S dX dY fS fdX
+// fdY status, then the 11 outputs S dX dY fS fdX fdY status pri dua obj dobj,
+// then the stream.  Returns the cudaError_t of the launch.
 #define SHARED_EPOCH_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(int n, int m, int B, int TB, int TC, int KS, int K,       \
+  extern "C" int NAME(int n, int m, int B, int TB, int TC, int KS, int H, int K, \
                       int unscaled, int check_dualgap, const void* scal,        \
                       void* F, void* CH, void* At, void* rho, void* rhoinv,     \
                       void* D, void* Dinv, void* E, void* Einv, void* c0,       \
@@ -768,8 +1017,8 @@ int launch(int n, int m, int B, int TB, int TC, int KS, int K, int unscaled, int
     void* const p[] = {F, CH, At, rho, rhoinv, D, Dinv, E, Einv, c0, Q, L, U,   \
                        S, dX, dY, fS, fdX, fdY, status, So, dXo, dYo, fSo,      \
                        fdXo, fdYo, status_o, pri, dua, obj, dobj};              \
-    return launch<T>(n, m, B, TB, TC, KS, K, unscaled, check_dualgap, scal, p,  \
-                     stream);                                                   \
+    return launch<T>(n, m, B, TB, TC, KS, H, K, unscaled, check_dualgap, scal,  \
+                     p, stream);                                                \
   }
 
 SHARED_EPOCH_ENTRY(shared_epoch_f32, float)

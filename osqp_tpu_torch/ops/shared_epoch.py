@@ -7,7 +7,8 @@ for every batch column:
 
 1. ``K`` affine ADMM iterations ``V = F @ S + c0``, ``Z = clip(V[n:], L, U)``,
    then the y and x relaxation updates (``S = [x; z; y]``, see
-   ``osqp_tpu_torch.batch_shared._build_affine``);
+   ``osqp_tpu_torch.batch_shared._build_affine``), with the product ``F @ S``
+   at the precision ``iter_prec`` names (``ITER_PRECS``);
 2. the active-column merge (terminated columns stay frozen);
 3. the full per-column termination check: residuals, objective, dual objective
    and gap with its noise floor, both infeasibility certificates and the
@@ -16,6 +17,14 @@ for every batch column:
 
 Layout is instance-last, ``(feature, B)``, contiguous.  Nothing is padded:
 the kernel masks the ragged batch edge itself.
+
+``iter_prec`` is the JAX kernel's ``iter_mode``: ``'highest'`` an exact
+product in the working dtype; ``'high'`` F and S split into bfloat16 hi and lo
+halves and ``F_hi S_hi + (F_hi S_lo + F_lo S_hi)``; ``'default'`` one product of
+the bfloat16 roundings.  Each bfloat16 product is exact in float32 and summed
+in float32, as on the TPU's matrix unit (and on Hopper's tensor cores).  The
+reduced modes are float32 only, as in the JAX package.  Only the iteration
+product changes: the check, residuals and certificates stay at full precision.
 
 ``shared_epoch`` launches the kernel for CUDA tensors (and raises if it cannot)
 and runs ``shared_epoch_plain`` for CPU tensors.  ``launches`` counts kernel
@@ -53,6 +62,24 @@ _ROWS = 4
 # A block's fixed cost in columns of iteration work, for the planner; from
 # timings of K1 on an H100 at several tile widths (PERF.md, section 6).
 _BLOCK_COLS = 8
+# Iteration-product precisions and the bfloat16 halves each keeps of F and S
+# (the kernel's H): 0 is the working dtype's exact product.
+ITER_PRECS = {'highest': 0, 'default': 1, 'high': 2}
+# Tensor-core tiles (16 rows of V by 8 columns) a warp may own in the reduced
+# modes (kMaxTiles in csrc/shared_epoch.cu).
+_MAX_TILES = 4
+
+
+def iter_halves(iter_prec: str, dtype) -> int:
+    """The bfloat16 halves of ``iter_prec`` (``ITER_PRECS``); raises
+    ``ValueError`` for an unknown mode, or for a reduced mode in another dtype
+    than float32 (the JAX package runs its fused kernel in float32 only)."""
+    if iter_prec not in ITER_PRECS:
+        raise ValueError(f"iter_prec must be one of {tuple(ITER_PRECS)}, got {iter_prec!r}")
+    if iter_prec != 'highest' and dtype != torch.float32:
+        raise ValueError(f"iter_prec={iter_prec!r} splits the iteration product into bfloat16 "
+                         f"passes and runs in float32 only, got {dtype}")
+    return ITER_PRECS[iter_prec]
 
 
 class EpochScalars(NamedTuple):
@@ -68,30 +95,64 @@ class EpochScalars(NamedTuple):
     K: int
     scaled_termination: bool
     check_dualgap: bool
+    iter_prec: str = 'highest'
 
 
-def epoch_scalars(settings, c, cinv, K: int) -> EpochScalars:
+def epoch_scalars(settings, c, cinv, K: int, iter_prec: str = 'highest') -> EpochScalars:
     return EpochScalars(
         alpha=settings.alpha, eps_abs=settings.eps_abs, eps_rel=settings.eps_rel,
         eps_prim_inf=settings.eps_prim_inf, eps_dual_inf=settings.eps_dual_inf,
         c=c, cinv=cinv, K=int(K),
         scaled_termination=bool(settings.scaled_termination),
-        check_dualgap=bool(settings.check_dualgap),
+        check_dualgap=bool(settings.check_dualgap), iter_prec=iter_prec,
     )
 
 
-def affine_iterations(F, c0, rho_vec, rho_inv, L, U, S, dX, dY, alpha, K: int):
-    """``K`` ADMM iterations in affine form (``_build_affine``): returns the
-    new stacked state and the last iteration's deltas ``(S, dX, dY)``."""
+def _bf16(X):
+    """``X`` rounded to bfloat16 (to nearest even, as ``astype``) and back."""
+    return X.to(torch.bfloat16).to(X.dtype)
+
+
+def _split(X):
+    """The bfloat16 hi and lo halves of ``X``, as values of its dtype."""
+    hi = _bf16(X)
+    return hi, _bf16(X - hi)
+
+
+def iteration_product(F, iter_prec: str = 'highest'):
+    """The function ``S -> F @ S`` at the precision ``iter_prec`` names, as
+    ``_body_kernel``'s ``iter_mm`` computes it.  The bfloat16 operands are cast
+    back to the working dtype before each product: a torch product of
+    bfloat16 tensors rounds its result to bfloat16, which the TPU does not."""
+    iter_halves(iter_prec, F.dtype)
+    if iter_prec == 'high':
+        F_hi, F_lo = _split(F)
+
+        def product(S):
+            S_hi, S_lo = _split(S)
+            return F_hi @ S_hi + (F_hi @ S_lo + F_lo @ S_hi)
+        return product
+    if iter_prec == 'default':
+        F_b = _bf16(F)
+        return lambda S: F_b @ _bf16(S)
+    return lambda S: F @ S
+
+
+def affine_iterations(F, c0, rho_vec, rho_inv, L, U, S, dX, dY, alpha, K: int,
+                      iter_prec: str = 'highest'):
+    """``K`` ADMM iterations in affine form (``_build_affine``), the product
+    at the precision ``iter_prec`` names: returns the new stacked state and
+    the last iteration's deltas ``(S, dX, dY)``."""
     n = c0.shape[0] - L.shape[0]
     m = L.shape[0]
     rho = rho_vec[:, None]
     rhoinv = rho_inv[:, None]
     one_m_alpha = type(alpha)(1) - alpha
+    product = iteration_product(F, iter_prec)
     for _ in range(K):
         X = S[:n]
         Y = S[n + m:]
-        V = F @ S + c0
+        V = product(S) + c0
         Xt = V[:n]
         Pz = V[n:]
         Zn = torch.minimum(torch.maximum(Pz, L), U)
@@ -123,7 +184,8 @@ def shared_epoch_plain(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
     loose = f(OSQP_INFTY * MIN_SCALING)
 
     # ---- 1. K ADMM iterations (affine form) ----
-    Sn, dXn, dYn = affine_iterations(F, c0, rho_vec, rho_inv, L, U, S, dX, dY, alpha, sc.K)
+    Sn, dXn, dYn = affine_iterations(F, c0, rho_vec, rho_inv, L, U, S, dX, dY, alpha, sc.K,
+                                     sc.iter_prec)
 
     # ---- 2. merge: terminated columns stay frozen ----
     active = (status == UNSOLVED)[None]
@@ -230,9 +292,10 @@ def shared_epoch_plain(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
 class TilePlan(NamedTuple):
     """How the kernel cuts one epoch: ``tb`` batch columns per block,
     ``threads`` per block, each owning a 4 x ``tc`` micro-tile of
-    ``V = F S``, and F' staged ``ks`` rows of k at a time: all of it once per
-    epoch (F resident, ``ks = n + 2m``) or in slabs in every iteration.  The
-    block's shared memory is ``smem_bytes(n, m, tb, ks, itemsize)``."""
+    ``V = F S`` (of the check's products, in the reduced modes), and F' staged
+    ``ks`` rows of k at a time: all of it once per epoch (F resident,
+    ``ks = n + 2m``) or in slabs in every iteration.  The block's shared
+    memory is ``smem_bytes(n, m, tb, ks, itemsize, halves)``."""
 
     tb: int
     threads: int
@@ -249,31 +312,59 @@ def w_stride(nm: int, itemsize: int) -> int:
     return r4 + (want - r4 % mod) % mod
 
 
-def smem_bytes(n: int, m: int, tb: int, ks: int, itemsize: int) -> int:
+def bf16_words(k: int) -> int:
+    """Row stride, in 32-bit words, of a bfloat16 matrix of ``k`` columns in
+    shared memory: ``k`` rounded up to 16, plus 8 bfloat16 (``bf16_words`` in
+    the .cu source)."""
+    return -(-k // 16) * 8 + 4
+
+
+def smem_bytes(n: int, m: int, tb: int, ks: int, itemsize: int, halves: int = 0) -> int:
     """Dynamic shared memory of one block: the ``Layout`` of the .cu source
-    (F' staged ``ks`` rows deep; the state S, dX, dY; V and T of the check;
-    the epoch-constant c0, L, U, Q and rho, 1/rho; 16 partial results per
-    column of the check), each region rounded up to 16 bytes."""
+    (F' staged ``ks`` rows deep, or in the reduced modes F's ``halves``
+    bfloat16 halves, row-major, whichever is larger; the state S, dX, dY; V
+    and T of the check; the epoch-constant c0, L, U, Q and rho, 1/rho; 16
+    partial results per column of the check; the state's bfloat16 halves),
+    each region rounded up to 16 bytes."""
     nm, N2 = n + m, n + 2 * m
-    sizes = (ks * w_stride(nm, itemsize), N2 * tb, nm * tb, n * tb, n * tb, m * tb,
-             nm * tb, m * tb, m * tb, n * tb, m, m, 16 * tb)
+    mp = -(-nm // 16) * 16
+    sizes = (max(ks * w_stride(nm, itemsize), halves * mp * bf16_words(ks)),
+             N2 * tb, nm * tb, n * tb, n * tb, m * tb,
+             nm * tb, m * tb, m * tb, n * tb, m, m, 16 * tb, halves * tb * bf16_words(N2))
     align = 16 // itemsize
     return sum(-(-s // align) * align for s in sizes) * itemsize
 
 
-def make_plan(n: int, m: int, tb: int, tc: int, itemsize: int) -> TilePlan:
+def make_plan(n: int, m: int, tb: int, tc: int, itemsize: int, halves: int = 0) -> TilePlan:
     """The plan for a given block width and micro-tile: F resident when it
-    fits beside the tiles, else the deepest slab (a multiple of 8 rows of k)
-    that does.  Raises ``ValueError`` when not even an 8-deep slab fits, or
-    when the kernel cannot run the micro-tile (more than 384 threads, or
-    fewer threads than batch columns)."""
+    fits beside the tiles, else the deepest slab (a multiple of 8 rows of k,
+    of 16 in the reduced modes) that does.  Raises ``ValueError`` when not
+    even the shallowest slab fits, or when the kernel cannot run the plan
+    (more than 384 threads, fewer threads than batch columns; in the reduced
+    modes float32, at least 8 columns and at most 4 tensor-core tiles per
+    warp, the threads rounded up to whole warps)."""
     N2 = n + 2 * m
     threads = -(-(n + m) // _ROWS) * (tb // tc)
+    if halves:
+        threads = -(-threads // 32) * 32
+        tiles = -(-(n + m) // 16) * (tb // 8)
+        if itemsize != 4 or tb < 8 or -(-tiles // (threads // 32)) > _MAX_TILES:
+            raise ValueError(f'shared_epoch: the reduced modes run float32 tiles of 8 to 32 '
+                             f'columns with at most {_MAX_TILES} tensor-core tiles per warp; '
+                             f'{tb} columns in {threads} threads do not')
     if not (tc <= tb and tb <= threads <= _MAX_THREADS):
         raise ValueError(f'shared_epoch: {tb} columns per block in micro-tiles {_ROWS} x {tc} '
                          f'take {threads} threads; the kernel runs {tb} to {_MAX_THREADS}')
-    if smem_bytes(n, m, tb, N2, itemsize) <= _SMEM_LIMIT:
+    if smem_bytes(n, m, tb, N2, itemsize, halves) <= _SMEM_LIMIT:
         ks = N2
+    elif halves:
+        ks = (N2 - 1) // 16 * 16
+        while ks >= 16 and smem_bytes(n, m, tb, ks, itemsize, halves) > _SMEM_LIMIT:
+            ks -= 16
+        if ks < 16:
+            raise ValueError(
+                f'shared_epoch: n={n}, m={m} needs {smem_bytes(n, m, tb, 16, itemsize, halves)} '
+                f'bytes of shared memory at {tb} batch columns per block (limit {_SMEM_LIMIT})')
     else:
         per_k = w_stride(n + m, itemsize) * itemsize
         ks = (_SMEM_LIMIT - smem_bytes(n, m, tb, 0, itemsize)) // per_k // 8 * 8
@@ -285,32 +376,37 @@ def make_plan(n: int, m: int, tb: int, tc: int, itemsize: int) -> TilePlan:
 
 
 @functools.lru_cache(maxsize=64)
-def plan_tile(n: int, m: int, B: int, itemsize: int, n_sm: int) -> TilePlan:
-    """The kernel's plan.  Block width: the power of two up to 32 whose tile
-    fits and that least loads the busiest SM (its blocks times each block's
-    columns plus a fixed cost per block), the wider one on a tie.
+def plan_tile(n: int, m: int, B: int, itemsize: int, n_sm: int, halves: int = 0) -> TilePlan:
+    """The kernel's plan.  Block width: the power of two up to 32 (at least
+    8 in the reduced modes, whose tensor-core tiles are 8 columns wide) whose
+    tile fits and that least loads the busiest SM (its blocks times each
+    block's columns plus a fixed cost per block), the wider one on a tie.
     Micro-tile columns: 2 where that still gives the block at least eight
-    warps, else 1.  Threads stay
-    within the kernel's 384, and at least one per batch column of the tile
-    (the check's column loops)."""
+    warps, else 1.  Threads stay within the kernel's 384, and at least one
+    per batch column of the tile (the check's column loops)."""
     n_groups = -(-(n + m) // _ROWS)
-    if smem_bytes(n, m, 1, 8, itemsize) > _SMEM_LIMIT:
+    widths = (32, 16, 8) if halves else (32, 16, 8, 4, 2, 1)
+    least = smem_bytes(n, m, widths[-1], 16 if halves else 8, itemsize, halves)
+    if least > _SMEM_LIMIT:
         raise ValueError(
-            f'shared_epoch: n={n}, m={m} needs {smem_bytes(n, m, 1, 8, itemsize)} bytes of '
-            f'shared memory even at one batch column per block (limit {_SMEM_LIMIT})')
+            f'shared_epoch: n={n}, m={m} needs {least} bytes of shared memory even at '
+            f'{widths[-1]} batch columns per block (limit {_SMEM_LIMIT})')
     if n_groups > _MAX_THREADS:
         raise ValueError(f'shared_epoch: n + m = {n + m} exceeds {_ROWS * _MAX_THREADS} '
                          f'(one {_ROWS}-row micro-tile per thread, {_MAX_THREADS} threads)')
     plans = []
-    for tb in (32, 16, 8, 4, 2, 1):
+    for tb in widths:
         runnable = []
         for tc in (2, 1):
             try:
-                runnable.append(make_plan(n, m, tb, tc, itemsize))
+                runnable.append(make_plan(n, m, tb, tc, itemsize, halves))
             except ValueError:  # TB = 1, TC = 1 always runs (checked above)
                 continue
         if runnable:
             plans.append(next((p for p in runnable if p.threads >= 256), runnable[-1]))
+    if not plans:
+        raise ValueError(f'shared_epoch: no plan of the reduced modes runs n={n}, m={m}')
+
     # the busiest SM's work, with blocks dealt out evenly: its blocks times
     # each block's columns, plus a fixed cost per block (loads, barriers, the
     # check's serial steps) worth about _BLOCK_COLS columns
@@ -329,7 +425,7 @@ def _lib_fn(dtype):
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         ci = ctypes.c_int
-        fn.argtypes = [ci] * 9 + [vp] * 33
+        fn.argtypes = [ci] * 10 + [vp] * 33
         fn.restype = ci
     return fn
 
@@ -338,9 +434,10 @@ def shared_epoch(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
                  c0, Q, L, U, S, dX, dY, fS, fdX, fdY, status,
                  sc: EpochScalars):
     """One fused epoch.  CUDA tensors: one launch of the Hopper kernel in
-    ``csrc/shared_epoch.cu`` on the current stream.  CPU tensors: the plain
-    version.  Returns ``(S, dX, dY, fS, fdX, fdY, status, pri, dua, obj,
-    dobj)``; the inputs are not modified."""
+    ``csrc/shared_epoch.cu`` on the current stream, whose iteration product
+    runs on the tensor cores in the reduced modes of ``sc.iter_prec``.  CPU
+    tensors: the plain version.  Returns ``(S, dX, dY, fS, fdX, fdY, status,
+    pri, dua, obj, dobj)``; the inputs are not modified."""
     args = (F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
             c0, Q, L, U, S, dX, dY, fS, fdX, fdY, status)
     if S.device.type == 'cpu':
@@ -352,6 +449,7 @@ def shared_epoch(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
     dtype = S.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f'shared_epoch: dtype must be float32 or float64, got {dtype}')
+    halves = iter_halves(sc.iter_prec, dtype)
     if m == 0 or n == 0:
         raise ValueError('shared_epoch: needs n > 0 and m > 0')
     nm, N2 = n + m, n + 2 * m
@@ -368,7 +466,7 @@ def shared_epoch(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
                 f'{shapes[name]} on {S.device}, got {t.dtype} {tuple(t.shape)} on {t.device}'
             )
     n_sm = torch.cuda.get_device_properties(S.device).multi_processor_count
-    plan = plan_tile(n, m, B, S.element_size(), n_sm)
+    plan = plan_tile(n, m, B, S.element_size(), n_sm, halves)
 
     outs = (torch.empty_like(S), torch.empty_like(dX), torch.empty_like(dY),
             torch.empty_like(fS), torch.empty_like(fdX), torch.empty_like(fdY),
@@ -380,7 +478,7 @@ def shared_epoch(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
     global launches
     with torch.cuda.device(S.device):
         err = _lib_fn(dtype)(
-            n, m, B, plan.tb, plan.tc, plan.ks, int(sc.K),
+            n, m, B, plan.tb, plan.tc, plan.ks, halves, int(sc.K),
             int(not sc.scaled_termination),
             int(sc.check_dualgap),
             scal.ctypes.data, *(t.data_ptr() for t in args),

@@ -31,6 +31,7 @@ from ..constants import (
     MAX_SCALING,
     MIN_SCALING,
     OSQP_INFTY,
+    PRINT_INTERVAL,
     RHO_EQ_OVER_RHO_INEQ,
     RHO_MAX,
     RHO_MIN,
@@ -648,7 +649,7 @@ def solve_scaled(data: QPData, scal: Scaling, settings: CoreSettings, rho: RhoSt
     ``it0`` is the iteration count a chunk starts from: the loop runs until
     ``settings.iter_cap``, and only a run that reaches ``settings.max_iter``
     unsolved takes the post-loop check.  ``verbose`` prints a row at every
-    check epoch whose iteration count is a multiple of 200."""
+    check epoch whose iteration count is a multiple of ``PRINT_INTERVAL``."""
     n = data.P.shape[0]
     m = data.A.shape[0]
     x0 = iterates.x
@@ -685,7 +686,7 @@ def solve_scaled(data: QPData, scal: Scaling, settings: CoreSettings, rho: RhoSt
         # primal-dual integral: iteration integral of the capped relative
         # KKT error (last-known value; converted to time by the backend)
         st.primdual_acc = st.primdual_acc + f(this_epoch) * np.minimum(f(1), st.rel_kkt)
-        if verbose and do_check and st.it % 200 == 0:
+        if verbose and do_check and st.it % PRINT_INTERVAL == 0:
             print_loop_row(st.it, st.obj_val, st.pri_res, st.dua_res, st.rho.rho)
 
         # Adaptive CG tolerance (indirect mode): monotone tightening toward

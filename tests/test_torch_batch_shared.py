@@ -221,6 +221,44 @@ def test_batched_osqp_matches_jax():
     _assert_results_match(t.solve(), j.solve())
 
 
+def test_batched_osqp_infeasible_instances_match_jax():
+    """A 64-instance shared batch with 16 primal- and 16 dual-infeasible
+    instances, float64, against osqp_tpu's BatchedOSQP: statuses and
+    iterations equal, the certificates (growing iterate differences) to 1e-6
+    relative, the solved instances' x to 1e-8.  P is singular along x_n,
+    which only the box row of x_n bounds: dual-infeasible instances leave it
+    unbounded above with q_n < 0.  The last two constraint rows are equal:
+    primal-infeasible instances give them disjoint intervals."""
+    B, n = 64, 6
+    rng = np.random.default_rng(8)
+    Lm = rng.standard_normal((n - 1, n - 1))
+    P = np.zeros((n, n))
+    P[:n - 1, :n - 1] = Lm @ Lm.T / n + 0.1 * np.eye(n - 1)
+    R = np.zeros((2, n))
+    R[:, :n - 1] = rng.standard_normal(n - 1)
+    A = np.vstack([np.eye(n), R])
+    q = rng.standard_normal((B, n))
+    l = np.tile(np.r_[-np.ones(n), -1.0, -1.0], (B, 1))
+    u = np.tile(np.r_[np.ones(n), 1.0, 1.0], (B, 1))
+    pinf, dinf = slice(16, 32), slice(32, 48)
+    l[pinf, n], u[pinf, n] = 2.0, 3.0
+    u[dinf, n - 1] = np.inf
+    q[dinf, n - 1] = -1.0 - rng.random(16)
+    kw = dict(verbose=False, eps_abs=1e-5, eps_rel=1e-5)
+    rj = JaxBatchedOSQP().setup(P, q, A, l, u, **kw).solve()
+    rt = BatchedOSQP(device='cpu', dtype=torch.float64).setup(P, q, A, l, u, **kw).solve()
+    st = rt.info.status_val
+    assert (st[pinf] == 3).all() and (st[dinf] == 5).all() and (st[:16] == 1).all()
+    np.testing.assert_array_equal(st, rj.info.status_val)
+    np.testing.assert_array_equal(rt.info.iter, rj.info.iter)
+    np.testing.assert_allclose(rt.prim_inf_cert[pinf], rj.prim_inf_cert[pinf], rtol=1e-6,
+                               atol=1e-12)
+    np.testing.assert_allclose(rt.dual_inf_cert[dinf], rj.dual_inf_cert[dinf], rtol=1e-6,
+                               atol=1e-12)
+    solved = st == 1
+    np.testing.assert_allclose(rt.x[solved], rj.x[solved], rtol=0, atol=1e-8)
+
+
 def test_batched_osqp_unported_paths_raise():
     with pytest.raises(NotImplementedError, match='vmap'):
         BatchedOSQP(device='cpu', engine='vmap')
@@ -230,5 +268,5 @@ def test_batched_osqp_unported_paths_raise():
         s.setup(np.tile(P, (4, 1, 1)), q, A, l, u)
     with pytest.raises(NotImplementedError, match='indirect'):
         s.setup(P, q, A, l, u, solver_type='indirect')
-    with pytest.raises(NotImplementedError, match='later slice'):
-        BatchedOSQP(device='cpu', iter_prec='high').setup(P, q, A, l, u).solve()
+    with pytest.raises(ValueError, match='float32 only'):
+        BatchedOSQP(device='cpu', iter_prec='high')

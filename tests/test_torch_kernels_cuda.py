@@ -107,6 +107,86 @@ def test_kernel_plans_match_plain_on_cuda(B, n, m, dtype, tol, resident):
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=tol * scale, equal_nan=True)
 
 
+def _epoch_case(B, n, m, dtype, seed=0):
+    """The fused epoch's inputs on the card at a state three plain epochs
+    from a cold start (converged and active columns both present)."""
+    P, A, q, l, u = _problems(B, n, m, seed=seed)
+    host = OracleSettings(eps_abs=1e-3, eps_rel=1e-3)
+    stg = default_core_settings(dtype, eps_abs=1e-3, eps_rel=1e-3)
+    P_s, A_s, Q, L, U, scal, rho0, Minv, M, rvec = tbs.shared_setup(
+        P, A, q, l, u, host, dtype=dtype, device='cuda')
+    rinv = torch.where(rvec > 0, 1.0 / rvec, 0.0)
+    F, c0 = tbs._build_affine(A_s, A_s.T, Minv, M, rvec, rinv, stg.sigma, stg.alpha, Q)
+    fixed = (F, torch.cat([P_s, A_s]), A_s.T.contiguous(), rvec, rinv, scal.D, scal.Dinv,
+             scal.E, scal.Einv, c0, Q, L, U)
+    sc = tse.epoch_scalars(stg, scal.c, scal.cinv, 25)
+    S = torch.zeros((n + 2 * m, B), dtype=dtype, device='cuda')
+    st = (S, S[:n].clone(), S[:m].clone(), S.clone(), S[:n].clone(), S[:m].clone(),
+          torch.full((B,), 11, dtype=torch.int32, device='cuda'))
+    for _ in range(3):
+        st = tse.shared_epoch_plain(*fixed, *st, sc)[:7]
+    return fixed, st, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('iter_prec', ['high', 'default'])
+@pytest.mark.parametrize('B, n, m', [(4096, 32, 48), (1024, 128, 192), (333, 13, 19)])
+def test_kernel_reduced_modes_match_plain_on_cuda(B, n, m, iter_prec):
+    """The kernel's tensor-core iteration product (iter_prec 'high' and
+    'default', float32) against the plain version on the card, at the
+    headline shape (F resident), at n=128, m=192 (F's halves streamed in
+    slabs) and at a ragged n=13, m=19 (16-row tiles straddle x and z).  One
+    iteration (K=1): statuses equal, values within 1e-5 of the state's scale
+    (the two sum in other orders).  One epoch (K=25): the iterates drift
+    apart by more than an ulp, so a column at the edge of its termination
+    test may stop an epoch apart; statuses equal in 99.9% ('high') or 99%
+    ('default') of the columns, and every status is the plain check's of
+    the kernel's own iterates.  'high' values within 2e-4 of the scale, as
+    'highest' (its lo halves absorb a one-ulp difference in S to 2^-17),
+    where the statuses agree; 'default' the state within 5e-2 (one bfloat16
+    pass turns a one-ulp difference in S into 2^-8 of the element).  Each
+    call launches the kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    fixed, st, sc = _epoch_case(B, n, m, torch.float32)
+    scale = max(1.0, float(st[0].abs().max()))
+    for K in (1, 25):
+        sck = sc._replace(K=K, iter_prec=iter_prec)
+        before = tse.launches
+        got = tse.shared_epoch(*fixed, *st, sck)
+        torch.cuda.synchronize()
+        assert tse.launches == before + 1
+        want = tse.shared_epoch_plain(*fixed, *st, sck)
+        same = got[6] == want[6]
+        loose = K == 25 and iter_prec == 'default'
+        share = 1.0 if K == 1 else (0.99 if loose else 0.999)
+        assert int((~same).sum()) <= (1 - share) * B
+        own = tse.shared_epoch_plain(*fixed, *got[:3], *st[3:], sck._replace(K=0))
+        assert torch.equal(own[6], got[6])
+        tol = 1e-5 if K == 1 else (5e-2 if loose else 2e-4)
+        for k in range(3):  # S, dX, dY
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=tol * scale)
+        if not loose:  # per-column results where the statuses agree
+            for k in (3, 4, 5):
+                torch.testing.assert_close(got[k][:, same], want[k][:, same], rtol=0,
+                                           atol=tol * scale)
+            for k in (7, 8, 9, 10):
+                torch.testing.assert_close(got[k][same], want[k][same], rtol=0,
+                                           atol=tol * scale, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_reduced_mode_rejected_in_f64_on_cuda():
+    """A reduced mode on float64 tensors raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    fixed, st, sc = _epoch_case(64, 5, 7, torch.float64)
+    before = tse.launches
+    with pytest.raises(ValueError, match='float32 only'):
+        tse.shared_epoch(*fixed, *st, sc._replace(iter_prec='high'))
+    assert tse.launches == before
+
+
 @pytest.mark.cuda
 def test_batched_osqp_on_cuda_matches_cpu_f64():
     """BatchedOSQP on the card (one kernel launch per epoch) against the same

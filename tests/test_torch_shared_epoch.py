@@ -40,13 +40,16 @@ def _jax_setup(B, n, m, seed, dtype, eps):
     return jbs.shared_setup(P, A, q, l, u, host, dtype=dtype)
 
 
-def test_plain_epoch_matches_pallas_interpret():
+def _plain_vs_pallas_interpret(iter_mode, K, epochs, rtol, atol):
     """shared_epoch_plain against the Pallas kernel in interpret mode, f32,
-    for two epochs from a cold start at a ragged shape.  The JAX inputs are
+    for ``epochs`` epochs of ``K`` iterations from a cold start at a ragged
+    shape (B=33, n=13, m=19), both in ``iter_mode``.  The JAX inputs are
     padded as batch_shared pads them (features to 8, batch to 128) and the
     results sliced back; the port takes the unpadded slices of the same
-    arrays.  Tolerance rtol 1e-4 / atol 1e-5, as test_fused_epoch_equivalence:
-    float32 sums run in another order in XLA and in torch."""
+    arrays, and each epoch starts both from the JAX kernel's state.  The
+    state to ``rtol`` / ``atol``, pri and dua to rtol 1e-4 and the larger of
+    ``atol`` and 1e-5, statuses equal.  Returns the number of columns solved
+    after the last epoch."""
     B0, n0, m0 = 33, 13, 19
     f32 = jnp.float32
     eps = 1e-3
@@ -76,15 +79,16 @@ def test_plain_epoch_matches_pallas_interpret():
 
     t_stg = default_core_settings(torch.float32, eps_abs=eps, eps_rel=eps)
     c, cinv = (np.float32(np.asarray(v)) for v in (scal.c, scal.cinv))
-    sc = tse.epoch_scalars(t_stg, c, cinv, 25)
+    sc = tse.epoch_scalars(t_stg, c, cinv, K, iter_mode)
     zeros = jnp.zeros
     S = zeros((n + 2 * m, B), f32)
     state = (S, zeros((n, B), f32), zeros((m, B), f32), S,
              zeros((n, B), f32), zeros((m, B), f32), jnp.full((B,), 11, jnp.int32))
     n_solved = 0
-    for _ in range(2):
+    for _ in range(epochs):
         got_j = shared_body_pallas(F, CH, Ap.T, rvec, rinv, D, Dinv, E, Einv, c0, Qp, Lp, Up,
-                                   *state, stg, scal.c, scal.cinv, codes, 25, interpret=True)
+                                   *state, stg, scal.c, scal.cinv, codes, K, interpret=True,
+                                   iter_mode=iter_mode)
         Sj, dXj, dYj, fSj, fdXj, fdYj, stj = (np.asarray(v) for v in state)
         got_t = tse.shared_epoch_plain(
             t(np.asarray(F)[np.ix_(rows_nm, rows_s)]),
@@ -98,14 +102,106 @@ def test_plain_epoch_matches_pallas_interpret():
         want = [np.asarray(v) for v in got_j]
         rows = [rows_s, slice(0, n0), slice(0, m0)] * 2  # S dX dY fS fdX fdY
         for k, r in enumerate(rows):
-            np.testing.assert_allclose(got_t[k].numpy(), want[k][r][:, :B0], rtol=1e-4, atol=1e-5)
+            np.testing.assert_allclose(got_t[k].numpy(), want[k][r][:, :B0], rtol=rtol, atol=atol)
         np.testing.assert_array_equal(got_t[6].numpy(), want[6][:B0])
         for k in (7, 8):  # pri, dua
-            np.testing.assert_allclose(got_t[k].numpy(), want[k][:B0], rtol=1e-4, atol=1e-5)
+            np.testing.assert_allclose(got_t[k].numpy(), want[k][:B0], rtol=1e-4,
+                                       atol=max(atol, 1e-5))
         n_solved = int((want[6][:B0] == 1).sum())
         state = tuple(got_j[:7])
+    return n_solved
+
+
+def test_plain_epoch_matches_pallas_interpret():
+    """shared_epoch_plain against the Pallas kernel in interpret mode, f32,
+    for two epochs from a cold start at a ragged shape.  Tolerance rtol 1e-4 /
+    atol 1e-5, as test_fused_epoch_equivalence: float32 sums run in another
+    order in XLA and in torch."""
+    n_solved = _plain_vs_pallas_interpret('highest', 25, 2, 1e-4, 1e-5)
     # the second epoch saw both converged and still-active columns
-    assert 0 < n_solved < B0
+    assert 0 < n_solved < 33
+
+
+@pytest.mark.parametrize('K, epochs, rtol, atol', [(1, 3, 0, 1e-6), (25, 2, 1e-4, 5e-5)])
+def test_plain_high_matches_pallas_interpret(K, epochs, rtol, atol):
+    """iter_prec 'high' (F and S split into bfloat16 hi and lo halves, three
+    products) against the JAX kernel's iter_mode 'high' in interpret mode,
+    which splits with the same astype roundings on the CPU.  Three one-
+    iteration epochs (the first from the zero state, whose product is zero)
+    hold the product to atol 1e-6.  Two epochs of 25 iterations: statuses
+    equal, the state, pri and dua to rtol 1e-4 / atol 5e-5, five times the
+    atol of 'highest': a one-ulp change in S can move S_lo's rounding by
+    2^-17 of S, so the sums' other order in XLA and in torch grows faster
+    here than in the exact product (test_torch_iter_prec.py::
+    test_high_amplifies_ulp_differences) and exceeds 'highest''s atol over
+    two epochs."""
+    n_solved = _plain_vs_pallas_interpret('high', K, epochs, rtol, atol)
+    if K == 25:
+        assert 0 < n_solved < 33
+
+
+def _bf16_iteration_inputs(seed=7):
+    """f32 inputs of one affine iteration at the ragged shape: F, c0, rho,
+    1/rho, L, U from the JAX package's setup and map, and a state near the
+    bounds, as numpy arrays."""
+    B, n, m = 33, 13, 19
+    args = _jax_setup(B, n, m, seed, jnp.float32, 1e-3)
+    P_s, A_s, Q, L_t, U_t, scal, rho0, Minv, M, rho_vec = args
+    stg = jax_default_core_settings(jnp.float32)
+    rinv = jnp.where(rho_vec > 0, 1.0 / rho_vec, 0.0)
+    F, c0 = jbs._build_affine(A_s, A_s.T, Minv, M, rho_vec, rinv, stg.sigma, stg.alpha, Q,
+                              jnp.matmul, jnp.float32)
+    X, Z, Y, dX, dY = _random_state(args, seed)
+    S = np.concatenate([X, Z, 10 * Y], axis=0).astype(np.float32)
+    return dict(F=np.asarray(F), c0=np.asarray(c0), rho=np.asarray(rho_vec),
+                rinv=np.asarray(rinv), L=np.asarray(L_t), U=np.asarray(U_t), S=S,
+                alpha=np.float32(stg.alpha), n=n, m=m)
+
+
+def _torch_iteration(d, iter_prec):
+    t = torch.tensor
+    n, m = d['n'], d['m']
+    S, _, _ = tse.affine_iterations(t(d['F']), t(d['c0']), t(d['rho']), t(d['rinv']),
+                                    t(d['L']), t(d['U']), t(d['S']), t(d['S'][:n]),
+                                    t(d['S'][:m]), d['alpha'], 1, iter_prec)
+    return S.numpy()
+
+
+def test_plain_default_matches_jax_bf16_reference():
+    """iter_prec 'default' for one iteration against the JAX reference of
+    what the TPU computes: the iteration of _body_kernel with its product
+    ``jnp.dot(F.astype(bf16), S.astype(bf16), preferred_element_type=f32)``
+    (on the CPU the Pallas kernel in interpret mode ignores
+    Precision.DEFAULT and computes in full float32).  atol 1e-6."""
+    d = _bf16_iteration_inputs()
+    n, m = d['n'], d['m']
+    bf16 = jnp.bfloat16
+    S = jnp.asarray(d['S'])
+    V = jnp.dot(jnp.asarray(d['F']).astype(bf16), S.astype(bf16),
+                preferred_element_type=jnp.float32) + d['c0']
+    X, Y = S[:n], S[n + m:]
+    Zn = jnp.clip(V[n:], d['L'], d['U'])
+    Yn = Y + d['rho'][:, None] * (V[n:] - d['rinv'][:, None] * Y - Zn)
+    Xn = d['alpha'] * V[:n] + (1 - d['alpha']) * X
+    want = np.asarray(jnp.concatenate([Xn, Zn, Yn], axis=0))
+    np.testing.assert_allclose(_torch_iteration(d, 'default'), want, rtol=0, atol=1e-6)
+
+
+def test_plain_default_is_not_float32():
+    """The plain 'default' iteration differs from the float32 one by more
+    than 1e-3 (one bfloat16 pass keeps 8 bits of each operand), and each of
+    its products is the float32 product of the bfloat16 values: it is
+    neither the exact product nor torch's bfloat16 matmul, whose result is
+    itself rounded to bfloat16."""
+    d = _bf16_iteration_inputs()
+    got = _torch_iteration(d, 'default')
+    assert np.abs(got - _torch_iteration(d, 'highest')).max() > 1e-3
+    F, S = torch.as_tensor(d['F']), torch.as_tensor(d['S'])
+    bf = (F.to(torch.bfloat16) @ S.to(torch.bfloat16)).float()
+    exact = F.to(torch.bfloat16).double() @ S.to(torch.bfloat16).double()
+    prod = tse.iteration_product(F, 'default')(S)
+    assert float((prod.double() - exact).abs().max()) < 1e-5
+    assert float((bf.double() - exact).abs().max()) > 1e-3
 
 
 def _random_state(args, seed):
@@ -246,14 +342,46 @@ def test_plan_smem_matches_cu_layout(n, m, B, size):
     nm = n + m
     ldw = tse.w_stride(nm, size)
     assert ldw >= -(-nm // 4) * 4 and (ldw * size) % 128 == 16
-    env = dict(n=n, m=m, nm=nm, N2=n + 2 * m, TB=p.tb, KS=p.ks, LDW=ldw)
-    regions = _cu_layout_regions()
-    assert len(regions) == 13
-    align = 16 // size
-    total = sum(-(-eval(e, {}, env) // align) * align for e in regions) * size
-    assert total == tse.smem_bytes(n, m, p.tb, p.ks, size)
+    assert _cu_layout_bytes(n, m, p.tb, p.ks, size, 0) == tse.smem_bytes(n, m, p.tb, p.ks, size)
     if not resident:  # the deepest 8-multiple slab that fits
         assert tse.smem_bytes(n, m, p.tb, p.ks + 8, size) > tse._SMEM_LIMIT
+
+
+def _cu_layout_bytes(n, m, tb, ks, size, halves):
+    """The bytes of the .cu source's ``Layout`` at a plan: its region
+    expressions evaluated with the names the constructor defines, each
+    rounded up to 16 bytes."""
+    nm, N2 = n + m, n + 2 * m
+    env = dict(n=n, m=m, nm=nm, N2=N2, TB=tb, KS=ks, LDW=tse.w_stride(nm, size), H=halves,
+               MP=-(-nm // 16) * 16, LDA2=tse.bf16_words(ks), LDK2=tse.bf16_words(N2),
+               imax=max)
+    regions = _cu_layout_regions()
+    assert len(regions) == 14
+    align = 16 // size
+    return sum(-(-eval(e, {}, env) // align) * align for e in regions) * size
+
+
+@pytest.mark.parametrize('halves', [1, 2])
+@pytest.mark.parametrize('n, m, B', [(32, 48, 4096), (128, 192, 1024), (13, 19, 333)])
+def test_plan_reduced_modes(n, m, B, halves):
+    """The reduced modes' plans at the headline, slab and ragged shapes: at
+    least 8 columns per block (the tensor-core tiles' width), whole warps of
+    threads, at most 4 tiles of V per warp, F resident at n=32, m=48 and
+    streamed in the deepest slab of whole 16-deep k tiles that fits at
+    n=128, m=192; the planner's shared memory is the .cu source's Layout."""
+    p = tse.plan_tile(n, m, B, 4, 132, halves)
+    assert p.tb >= 8 and p.threads % 32 == 0 and p.tb <= p.threads <= tse._MAX_THREADS
+    tiles = -(-(n + m) // 16) * (p.tb // 8)
+    assert -(-tiles // (p.threads // 32)) <= tse._MAX_TILES
+    smem = tse.smem_bytes(n, m, p.tb, p.ks, 4, halves)
+    assert smem <= tse._SMEM_LIMIT
+    assert _cu_layout_bytes(n, m, p.tb, p.ks, 4, halves) == smem
+    assert (p.ks == n + 2 * m) == (n != 128)
+    if p.ks < n + 2 * m:
+        assert p.ks % 16 == 0
+        assert tse.smem_bytes(n, m, p.tb, p.ks + 16, 4, halves) > tse._SMEM_LIMIT
+    with pytest.raises(ValueError, match='float32'):
+        tse.make_plan(n, m, p.tb, p.tc, 8, halves)
 
 
 def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
