@@ -54,7 +54,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    rejected polish's line search at n = 30; time_limit = 0.05 s and a real SIGINT
    from a timer at n = 2^20, each stopping after whole chunks; and one
    verbose solve at n = 2^20 whose console rows are printed and counted;
-8. a JSON line with each kernel's numbers, then the result line
+8. three more single-QP paths, each OSQP(sparse=True) in float64 at eps
+   1e-3 with the format ladder on auto: setup, a cold solve and two warm
+   update(q) steps, with every kernel's launch count set to 0 just before
+   and read just after, then a profile of one more warm step.  The ELL
+   family (an even-row random graph QP, n = 2^20: both operators ELL, K3),
+   the BSR family (tests/test_spmv.py's clustered QP at nsb = 1024,
+   n = 131,072: both BSR, K4) and the Portfolio problem of the OSQP
+   benchmark suite (100,000 assets, 1,000 factors: P DIA, K2; A the CSR
+   fallback, cuSPARSE).  Formats as expected, the path's kernel launched,
+   every step solved and passing its f64 host termination test.  After the
+   ELL and BSR paths, K3 and K4 against their plain versions on the path's
+   own operators (f64 and f32) and on ragged shapes, with error relative to
+   each row's sum of |a| |v| (f32 1e-5, f64 1e-12), device ms with the L2
+   warm and cold, the plain version's and cuSPARSE's times and the bound;
+9. the three families at a small size on the card against the CPU in f64
+   with a polish (same formats and statuses, iterations within 5%, x within
+   1e-6 of ||x||), and the derivative API on the card against the CPU on
+   tests/test_derivative.py's problems and a dense random QP at n = 2000,
+   m = 3000 (within 1e-9 relative);
+10. a JSON line with each kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  It needs the repository's
@@ -130,6 +149,33 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def event_ms(fn, reps, flush=None):
+    """Device time of one call of ``fn`` from CUDA events recorded just
+    before and after it, the mean over ``reps`` calls after a warm-up.
+    Before each call the card spins for about 0.5 ms (``torch.cuda._sleep``,
+    which touches no memory, so the L2 stays as it was), while the host
+    queues the events and ``fn``'s launches behind it: the events then time
+    the device's work alone, not the host's launch gaps.  ``flush`` runs
+    before the spin, outside the count (an L2 flush).  Unlike ``device_ms``
+    it loses no call to a dropped profiler record."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks) / reps
+
+
 def device_ms(fn, reps, name=None, flush=None, tries=3):
     """Device time of one call of ``fn``: the summed durations of the device
     kernels and copies it runs (only those whose name holds ``name``, when
@@ -137,10 +183,12 @@ def device_ms(fn, reps, name=None, flush=None, tries=3):
     ``cuda_ms`` this leaves out the host's time between launches.  ``flush``
     runs before each call, outside the count (an L2 flush).  With ``name``,
     ``fn`` launches that kernel once, and the time is the mean over the
-    launches the profiler recorded: a trace can drop records (1 of 50 or 17
-    of 20 have gone missing), which a sum over ``reps`` would read as a
-    shorter kernel.  A profile that recorded fewer than half of them is
-    taken again, up to ``tries`` times."""
+    launches the profiler recorded: a trace can drop records (1 of 50, 17
+    of 20 or 15 of 20 have gone missing), which a sum over ``reps`` would
+    read as a shorter kernel.  A profile that recorded fewer than half of
+    them, or (without ``name``) no device time at all, is taken again, up to
+    ``tries`` times.  Without ``name`` the sum over ``reps`` stands, which a
+    dropped record shortens (``event_ms`` does not)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -157,17 +205,15 @@ def device_ms(fn, reps, name=None, flush=None, tries=3):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and (name is None or name in e.key)]
         total = sum(e.self_device_time_total for e in evs)
-        if total <= 0:
-            raise AssertionError(f'the profiler recorded no device time for {name or fn}')
-        if name is None:
-            return total / 1e3 / reps
         recorded = sum(e.count for e in evs)
-        if 2 * recorded >= reps:
+        if total > 0 and name is None:
+            return total / 1e3 / reps
+        if total > 0 and 2 * recorded >= reps:
             return total / 1e3 / recorded
-        print(f'device_ms: the profiler recorded {recorded} of {reps} launches of {name}; '
-              'profiling again', flush=True)
-    raise AssertionError(f'the profiler recorded fewer than half of {reps} launches of {name} '
-                         f'in each of {tries} profiles (the last: {recorded})')
+        print(f'device_ms: the profiler recorded {recorded} records of {reps} calls of '
+              f'{name or fn}; profiling again', flush=True)
+    raise AssertionError(f'the profiler recorded no device time, or fewer than half of {reps} '
+                         f'launches, for {name or fn} in each of {tries} profiles')
 
 
 def epoch_inputs(B, n, m, dtype, seed):
@@ -701,7 +747,7 @@ def dia_phase(card):
     return rows
 
 
-def sparse_residual_check(P, A, l, u, q, x, y, eps):
+def sparse_residual_check(P, A, l, u, q, x, y, eps, hold=True):
     """The termination test of a returned solution, recomputed on the host in
     float64 with scipy (the rule of residual_check): ||Ax - proj(Ax)|| <=
     eps (1 + max(||Ax||, ||proj(Ax)||)) and ||Px + q + A'y|| <= eps (1 +
@@ -709,7 +755,7 @@ def sparse_residual_check(P, A, l, u, q, x, y, eps):
     Every row of Ax, Px and A'y sums at most three terms of O(1) values, so
     the float32 rounding of the returned x and y moves a row's residual by a
     few 1e-7, far inside the slack, whatever n.  Returns the largest ratio of
-    residual to bound."""
+    residual to bound; raises if the test fails, unless ``hold`` is false."""
     x = np.asarray(x, np.float64)
     y = np.asarray(y, np.float64)
     Ax = A @ x
@@ -719,7 +765,7 @@ def sparse_residual_check(P, A, l, u, q, x, y, eps):
     dua = np.abs(Px + q + Aty).max()
     eps_pri = eps + eps * max(np.abs(Ax).max(), np.abs(proj).max())
     eps_dua = eps + eps * max(np.abs(Px).max(), np.abs(Aty).max(), np.abs(q).max())
-    if pri > 1.05 * eps_pri + 1e-4 or dua > 1.05 * eps_dua + 1e-4:
+    if hold and (pri > 1.05 * eps_pri + 1e-4 or dua > 1.05 * eps_dua + 1e-4):
         raise AssertionError(f'a returned solution fails its termination test: '
                              f'pri {pri} vs {eps_pri}, dua {dua} vs {eps_dua}')
     return max(pri / eps_pri, dua / eps_dua)
@@ -1103,6 +1149,526 @@ def verbose_path(sp_run, max_iter=600):
 
 
 
+# ---------------------------------------------------------------------------
+# The ELL, BSR and BCOO single-QP paths: K3, K4, K2 and cuSPARSE
+# ---------------------------------------------------------------------------
+
+FAMILY_WARM = 2
+ELL_N = 1 << 20
+CLUSTER_NSB = 1024
+PORTFOLIO_N, PORTFOLIO_K = 100_000, 1_000
+
+
+def ell_family(n, seed=0):
+    """The even-row random graph QP: P = S + S' + diag(2 rowsum|S + S'| + 1),
+    S with 4 off-diagonal N(0, 1) entries per row at uniform random columns;
+    A = I + R, R with 7 entries per row at uniform random columns, N(0, 1)
+    0.5 / 7; l = -1.5, u = 1.5, q ~ N(0, 1)."""
+    import scipy.sparse as sparse
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), 4)
+    cols = (rows + rng.integers(1, n, rows.size)) % n
+    S = sparse.coo_matrix((rng.standard_normal(rows.size), (rows, cols)), shape=(n, n)).tocsr()
+    S = (S + S.T).tocsr()
+    P = (S + sparse.diags(2 * np.asarray(abs(S).sum(axis=1)).ravel() + 1)).tocsc()
+    rows = np.repeat(np.arange(n), 7)
+    cols = rng.integers(0, n, rows.size)
+    R = sparse.coo_matrix((rng.standard_normal(rows.size) * (0.5 / 7), (rows, cols)),
+                          shape=(n, n))
+    A = (sparse.eye(n, format='csc') + R.tocsc()).tocsc()
+    q = rng.standard_normal(n)
+    return P, q, A, -1.5 * np.ones(n), 1.5 * np.ones(n)
+
+
+def _super_clustered(nsb, pairs, seed, scale):
+    """tests/test_spmv.py::_super_clustered built as COO, with the same draws
+    in the same order: dense 128 x 128 blocks on the diagonal (symmetrized)
+    and at each pair (i, j), with B' at (j, i)."""
+    import scipy.sparse as sparse
+
+    rng = np.random.default_rng(seed)
+    ij = np.array([(i, i) for i in range(nsb)] + sorted(pairs), dtype=np.int64)
+    B = rng.standard_normal((len(ij), 128, 128)) * scale
+    B[:nsb] = (B[:nsb] + B[:nsb].transpose(0, 2, 1)) / 2
+    blocks = np.concatenate([B, B[nsb:].transpose(0, 2, 1)])
+    bi = np.concatenate([ij[:, 0], ij[nsb:, 1]])
+    bj = np.concatenate([ij[:, 1], ij[nsb:, 0]])
+    r = np.arange(128)
+    rows = np.broadcast_to(bi[:, None, None] * 128 + r[None, :, None], blocks.shape)
+    cols = np.broadcast_to(bj[:, None, None] * 128 + r[None, None, :], blocks.shape)
+    n = nsb * 128
+    return sparse.coo_matrix((blocks.ravel(), (rows.ravel(), cols.ravel())),
+                             shape=(n, n)).tocsc()
+
+
+def clustered_family(nsb, n_pairs, seed=0):
+    """tests/test_spmv.py::_clustered_qp (its draws, in its order): P and A
+    scattered dense 128 x 128 super-blocks plus the identity."""
+    import scipy.sparse as sparse
+
+    rng = np.random.default_rng(seed)
+    n = nsb * 128
+    pairs = set()
+    while len(pairs) < n_pairs:
+        i, j = sorted(rng.integers(nsb, size=2))
+        if i != j:
+            pairs.add((int(i), int(j)))
+    P = (_super_clustered(nsb, pairs, seed, 1.0 / (128 * 8)) + sparse.eye(n)).tocsc()
+    A = (_super_clustered(nsb, pairs, seed + 1, 1.0 / 64) + sparse.eye(n)).tocsc()
+    q = rng.standard_normal(n)
+    x0 = rng.standard_normal(n)
+    s0 = rng.random(n) + 0.1
+    u = A @ x0 + s0
+    return P, q, A, u - 2 * s0, u
+
+
+def portfolio_family(n, k, seed=0):
+    """The Portfolio problem of the OSQP benchmark suite (Stellato et al.,
+    Math. Prog. Comp. 2020; osqp_benchmarks problem_classes/portfolio.py):
+    minimize x'Dx + y'y - mu'x over (x, y) subject to y = F'x, 1'x = 1,
+    0 <= x <= 1; F (n, k) of density 0.5 with N(0, 1) values, D_ii ~
+    U[0, sqrt(k)], mu ~ N(0, 1)."""
+    import scipy.sparse as sparse
+
+    rng = np.random.default_rng(seed)
+    fr, fc = np.nonzero(rng.random((k, n)) < 0.5)  # F' pattern
+    fv = rng.standard_normal(fr.size)
+    D = rng.random(n) * np.sqrt(k)
+    mu = rng.standard_normal(n)
+    P = sparse.diags(np.concatenate([2 * D, 2 * np.ones(k)])).tocsc()
+    q = np.concatenate([-mu, np.zeros(k)])
+    rows = np.concatenate([np.zeros(n, np.int64), fr + 1, np.arange(1, k + 1),
+                           np.arange(k + 1, k + 1 + n)])
+    cols = np.concatenate([np.arange(n), fc, n + np.arange(k), np.arange(n)])
+    vals = np.concatenate([np.ones(n), fv, -np.ones(k), np.ones(n)])
+    A = sparse.coo_matrix((vals, (rows, cols)), shape=(1 + k + n, n + k)).tocsc()
+    l = np.concatenate([[1.0], np.zeros(k + n)])
+    u = np.concatenate([[1.0], np.zeros(k), np.ones(n)])
+    return P, q, A, l, u
+
+
+def _launch_counters():
+    from osqp_tpu_torch.ops import bsr_matvec as bm
+    from osqp_tpu_torch.ops import dia_matvec as dm
+    from osqp_tpu_torch.ops import ell_matvec as em
+
+    return dict(dia_matvec=dm, ell_matvec=em, bsr_matvec=bm)
+
+
+def profile_family(o, q):
+    """One warm update(q) + solve under torch.profiler: wall, device busy and
+    idle share, kernel count, and each operator product's device time and
+    share of busy time (the port's three kernels by name, cuSPARSE's by its
+    namespace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        o.update(q=q)
+        r = o.solve(raise_error=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        raise AssertionError('the profiler recorded no device time')
+    products = {}
+    for label, key in (('dia_matvec', 'dia_matvec_kernel'), ('ell_matvec', 'ell_matvec_kernel'),
+                       ('bsr_matvec', 'bsr_matvec_kernel'), ('cusparse', 'cusparse')):
+        evs = [e for e in kernels if key in e.key.lower()]
+        ms = sum(e.self_device_time_total for e in evs) / 1e3
+        if evs:
+            products[label] = dict(ms=ms, launches=sum(e.count for e in evs), share=ms / busy)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(status=r.info.status, iters=r.info.iter, cg_iters=r.info.cg_iters,
+                host_syncs=r.info.host_syncs, wall_ms=wall_ms, device_busy_ms=busy,
+                device_idle_share=1 - busy / wall_ms,
+                kernel_launches_all=sum(e.count for e in kernels), products=products,
+                top_kernels=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                             for e in top])
+
+
+def family_path(name, build, expect, kernel, solved=True, profile_iters=None):
+    """osqp_tpu_torch.OSQP(sparse=True) on the card in float64, eps 1e-3, the
+    format ladder on auto and every other setting at its default: setup, a
+    cold solve and FAMILY_WARM warm update(q * 1.01^k) steps, with every
+    kernel's launch count set to 0 just before and read just after.  The
+    formats must be ``expect`` and ``kernel`` must have launched.  With
+    ``solved``, every step must be solved and pass its f64 host
+    termination test; without it (the Portfolio family, which the indirect
+    solver does not bring to eps 1e-3 within the default 4000 iterations:
+    ROADMAP.md Queue 3), every step must end solved or at the iteration
+    limit with finite iterates, a solved step must pass the host test, and
+    each step's ratio of residual to bound is reported.  Then a profile of
+    one more warm step, cut to ``profile_iters`` iterations when given.
+    Returns the summary and the solver."""
+    from osqp_tpu_torch import OSQP
+
+    t0 = time.perf_counter()
+    P, q, A, l, u = build()
+    gen_s = time.perf_counter() - t0
+    counters = _launch_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = OSQP(device=DEV, sparse=True)
+    o.setup(P=P, q=q, A=A, l=l, u=u, eps_abs=EPS, eps_rel=EPS, polishing=False, verbose=False)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    qs, results, times = [], [], []
+    for k in range(FAMILY_WARM + 1):
+        qs.append(q * 1.01 ** k)
+        t0 = time.perf_counter()
+        if k:
+            o.update(q=qs[k])
+        results.append(o.solve(raise_error=False))
+        times.append(time.perf_counter() - t0)
+    launches = {k: mod.launches for k, mod in counters.items()}
+    fmts = (o._solver._sparse_fmt_P, o._solver._sparse_fmt_A)
+    if fmts != expect:
+        raise AssertionError(f'{name}: formats {fmts}, expected {expect}')
+    if launches[kernel] <= 0:
+        raise AssertionError(f'{name}: the {kernel} kernel never launched')
+    statuses = [r.info.status for r in results]
+    allowed = ('solved',) if solved else ('solved', 'maximum iterations reached')
+    if any(st not in allowed for st in statuses) or not all(
+            np.isfinite(r.x).all() and np.isfinite(r.y).all() for r in results):
+        raise AssertionError(f'{name}: statuses {statuses}')
+    ratios = [sparse_residual_check(P, A, l, u, qk, r.x, r.y, EPS, hold=r.info.status == 'solved')
+              for qk, r in zip(qs, results)]
+    summary = dict(
+        family=name, n=P.shape[0], m=A.shape[0], nnz_P=int(P.nnz), nnz_A=int(A.nnz),
+        dtype='float64', eps=EPS, formats=list(fmts), generate_s=gen_s, setup_s=setup_s,
+        cold_solve_s=times[0], warm_solve_s=times[1:], statuses=statuses,
+        admm_iters=[r.info.iter for r in results], cg_steps=[r.info.cg_iters for r in results],
+        host_syncs=[r.info.host_syncs for r in results], launches=launches,
+        residual_over_bound=ratios, device_mem_gb=torch.cuda.memory_allocated() / 1e9)
+    if profile_iters:
+        o.update_settings(max_iter=profile_iters)
+    summary['profile'] = profile_family(o, q * 1.01 ** (FAMILY_WARM + 1))
+    summary['profile']['max_iter'] = profile_iters
+    print(f'{name} path:', json.dumps(summary), flush=True)
+    return summary, o
+
+
+def _ell_csr(data, cols, n):
+    """The ELL matrix as a torch CSR tensor on the card (pads dropped)."""
+    m, K = data.shape
+    keep = data != 0
+    rows = torch.arange(m, device=data.device)[:, None].expand(m, K)[keep]
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols[keep].long()]), data[keep], (m, n),
+                                  check_invariants=False)
+    return coo.coalesce().to_sparse_csr()
+
+
+def _bsr_csr(blocks, bcols, m, n):
+    """The block-ELL matrix as a torch CSR tensor on the card (zeros
+    dropped)."""
+    b, k, r, c = blocks.nonzero().unbind(1)
+    idx = torch.stack([b * 8 + r, bcols[b, k].long() * 128 + c])
+    coo = torch.sparse_coo_tensor(idx, blocks[b, k, r, c], (m, n), check_invariants=False)
+    return coo.coalesce().to_sparse_csr()
+
+
+def _csr_ell(csr):
+    """A CSR tensor on the card as ELL arrays (data, cols) padded to its
+    longest row, for timing K3 on another family's matrix."""
+    crow, col, val = csr.crow_indices(), csr.col_indices(), csr.values()
+    m = crow.numel() - 1
+    counts = crow[1:] - crow[:-1]
+    K = max(int(counts.max()), 1)
+    row = torch.repeat_interleave(torch.arange(m, device=crow.device), counts)
+    pos = torch.arange(val.numel(), device=crow.device) - crow[:-1][row]
+    data = torch.zeros((m, K), dtype=val.dtype, device=val.device)
+    cols = torch.zeros((m, K), dtype=torch.int32, device=val.device)
+    data[row, pos] = val
+    cols[row, pos] = col.int()
+    return data, cols
+
+
+def matvec_row(card, label, name, kern, plain, abs_plain, csr, v, nbytes, flops, flush, **shape):
+    """One kernel against its plain version on the card: the largest error
+    relative to each row's sum of |a| |v| (f32 1e-5, f64 1e-12: the kernel
+    sums in another order, with FMA), device ms with the L2 warm and cold,
+    the plain version's and cuSPARSE's (``csr @ v``) device ms (all from
+    CUDA events, ``event_ms``), and the bound."""
+    f32_peak, f64_peak, mem_peak, _ = peaks(card)
+    dtype = v.dtype
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    diff = (got - want).abs()
+    scale = abs_plain().clamp(min=torch.finfo(dtype).tiny)  # rows of pads only: 0
+    rel = float((diff / scale).max()) if diff.numel() else 0.0
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    if not rel <= tol:
+        raise AssertionError(f'{name} {label} {dtype}: error {rel} of the row scale > {tol}')
+    lib_diff = float((csr @ v - want).abs().max())
+    t_bytes = nbytes / mem_peak
+    t_ops = flops / (f32_peak if dtype == torch.float32 else f64_peak)
+    ms = event_ms(kern, 50)
+    cold = event_ms(kern, 20, flush=flush.zero_)
+    row = dict(case=label, dtype=str(dtype).replace('torch.', ''), **shape,
+               max_abs_err=float(diff.max()), max_rel_err=rel, tol=tol,
+               cusparse_abs_diff=lib_diff, ms=ms, cold_l2_ms=cold,
+               plain_ms=event_ms(plain, 20), library_ms=event_ms(lambda: csr @ v, 50),
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by='operations' if t_ops > t_bytes else 'bytes')
+    row.update(bound_share=row['bound_ms'] / ms, bound_share_cold_l2=row['bound_ms'] / cold)
+    print(f'{name} vs plain:', json.dumps(row), flush=True)
+    return row
+
+
+def ell_rows(card, o, flush):
+    """K3 on the ELL path's own operators (P, A and A', scaled, f64 and
+    f32) and on ragged arrays: K = 3 and 13 at m != n, K = 40 (over a
+    warp), with pads at column 0."""
+    from osqp_tpu_torch.ops import ell_matvec as em
+
+    d = o._solver._data
+    rng = np.random.default_rng(11)
+    cases = [('P @ v', d.P), ('A @ v', d.A), ("A' @ y", d.A.T)]
+    arrays = []
+    for dtype in (torch.float64, torch.float32):
+        for label, M in cases:
+            M = M.astype(dtype)
+            arrays.append((label, M.data, M.cols, M.shape[1]))
+    for m, n, K in ((200_003, 150_001, 3), (150_001, 200_003, 13), (100_003, 90_001, 40)):
+        cols = rng.integers(1, n, (m, K)).astype(np.int32)
+        data = rng.standard_normal((m, K))
+        pad = rng.random((m, K)) < 0.2
+        data[pad], cols[pad] = 0.0, 0
+        for dtype in (torch.float64, torch.float32):
+            arrays.append((f'ragged K={K}', torch.as_tensor(data, dtype=dtype, device=DEV),
+                           torch.as_tensor(cols, device=DEV), n))
+    rows = []
+    for label, data, cols, n in arrays:
+        m, K = data.shape
+        v = torch.as_tensor(rng.standard_normal(n), dtype=data.dtype, device=DEV)
+        item = data.element_size()
+        rows.append(matvec_row(
+            card, label, 'ell_matvec', lambda: em.ell_matvec(data, cols, v),
+            lambda: em.ell_matvec_plain(data, cols, v),
+            lambda: em.ell_matvec_plain(data.abs(), cols, v.abs()), _ell_csr(data, cols, n), v,
+            m * K * (item + 4) + (m + n) * item, 2 * m * K, flush, m=m, n=n, K=K,
+            lanes_per_row=1 << em.group_log2(K)))
+    return rows
+
+
+def bsr_rows(card, o, flush):
+    """K4 on the BSR path's own A and A' (scaled, f64 and f32) and on a
+    ragged 1000 x 1000 matrix (multiples of neither 8 nor 128)."""
+    import scipy.sparse as sparse
+
+    from osqp_tpu_torch.ops import bsr_matvec as bm
+    from osqp_tpu_torch.ops import spmv
+
+    A = o._solver._data.A
+    rng = np.random.default_rng(12)
+    S = sparse.random(1000, 1000, density=0.05, random_state=rng, format='csc')
+    arrays = []
+    for dtype in (torch.float64, torch.float32):
+        for label, M in (('A @ v', A.astype(dtype)), ("A' @ y", A.T.astype(dtype)),
+                         ('ragged 1000 x 1000', spmv.bsr_from_scipy(S, dtype, DEV))):
+            arrays.append((label, M.blocks, M.bcols, M.shape))
+    rows = []
+    for label, blocks, bcols, (m, n) in arrays:
+        nbr, Kb = bcols.shape
+        v = torch.as_tensor(rng.standard_normal(n), dtype=blocks.dtype, device=DEV)
+        item = blocks.element_size()
+        rows.append(matvec_row(
+            card, label, 'bsr_matvec', lambda: bm.bsr_matvec(blocks, bcols, v, m),
+            lambda: bm.bsr_matvec_plain(blocks, bcols, v, m),
+            lambda: bm.bsr_matvec_plain(blocks.abs(), bcols, v.abs(), m),
+            _bsr_csr(blocks, bcols, m, n), v,
+            nbr * Kb * (1024 * item + 4) + (m + n) * item, 2 * nbr * Kb * 1024, flush,
+            m=m, n=n, nbr=nbr, Kb=Kb))
+    return rows
+
+
+def ladder_rows(o, family):
+    """The format ladder on the card for one path's scaled operators, f64:
+    device ms per product of each format that fits in 8 GB (the port's
+    kernels on their own arrays; ELL also built from the matrix where its
+    padded rows fit) beside cuSPARSE's CSR of the same matrix (``event_ms``)."""
+    from osqp_tpu_torch.ops import ell_matvec as em
+    from osqp_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(13)
+    out = []
+    d = o._solver._data
+    for label, M in (('P', d.P), ('A', d.A), ("A'", d.A.T)):
+        m, n = M.shape
+        v = torch.as_tensor(rng.standard_normal(n), device=DEV)
+        if isinstance(M, spmv.CooMatrix):
+            csr = M.csr
+        elif isinstance(M, spmv.EllMatrix):
+            csr = _ell_csr(M.data, M.cols, n)
+        elif isinstance(M, spmv.BsrMatrix):
+            csr = _bsr_csr(M.blocks, M.bcols, m, n)
+        else:  # DIA: every band's in-range non-zeros
+            rows = torch.arange(m, device=DEV)
+            idx, vals = [], []
+            for k, off in enumerate(M.offsets):
+                c = rows + off
+                keep = (c >= 0) & (c < n) & (M.bands[k] != 0)
+                idx.append(torch.stack([rows[keep], c[keep]]))
+                vals.append(M.bands[k][keep])
+            csr = torch.sparse_coo_tensor(torch.cat(idx, 1), torch.cat(vals), (m, n),
+                                          check_invariants=False).coalesce().to_sparse_csr()
+        row = dict(family=family, operator=label, m=m, n=n, nnz=int(csr.values().numel()),
+                   format=type(M).__name__, ms=event_ms(lambda: M @ v, 20),
+                   cusparse_csr_ms=event_ms(lambda: csr @ v, 20))
+        counts = csr.crow_indices().diff()
+        K = int(counts.max())
+        row['ell_K'] = K
+        if not isinstance(M, spmv.EllMatrix) and m * K * 12 <= 8e9:
+            data, cols = _csr_ell(csr)
+            row['ell_ms'] = event_ms(lambda: em.ell_matvec(data, cols, v), 20)
+            del data, cols
+        print('format ladder:', json.dumps(row), flush=True)
+        out.append(row)
+        del csr
+    return out
+
+
+def families_card_vs_cpu():
+    """The three families at a small size in f64 with a polish, on the card
+    and on the CPU, with no dense budget so the ladder picks ELL, BSR and
+    DIA + BCOO as at full size: the same formats and statuses, ADMM
+    iterations within 5% (the gap is reported), x within 1e-6 of ||x||.
+    The Portfolio's CG stops at its 20-step cap in almost every solve, so a
+    last-bit difference between cuSPARSE's sums and the CPU's, which on the
+    card also differ from run to run, moves where each solve stops (1,525,
+    1,675 and 1,725 ADMM iterations on the card in three runs, 1,725 on the
+    CPU) and the two eps-1e-3 solutions part by up to the solver's
+    tolerance.  There the card's operator products (A v and A' y) are held
+    to the CPU's within 1e-12 of each row's sum of |a| |v|, each x to its
+    f64 host termination test, and the iteration gap and x gap are
+    reported."""
+    from osqp_tpu_torch import OSQP
+
+    rows = []
+    for name, build in (('ell n=4096', lambda: ell_family(4096)),
+                        ('bsr nsb=32', lambda: clustered_family(32, 32)),
+                        ('portfolio n=2000 k=20', lambda: portfolio_family(2000, 20))):
+        P, q, A, l, u = build()
+        out = {}
+        for dev in (DEV, 'cpu'):
+            o = OSQP(device=dev, sparse=True, dense_budget_bytes=0)
+            o.setup(P=P, q=q, A=A, l=l, u=u, eps_abs=EPS, eps_rel=EPS, polishing=True,
+                    verbose=False)
+            out[dev] = (o.solve(raise_error=False),
+                        (o._solver._sparse_fmt_P, o._solver._sparse_fmt_A), o._solver._data.A)
+        (g, fg, Ag), (w, fw, Aw) = out[DEV], out['cpu']
+        sensitive = name.startswith('portfolio')
+        gap = abs(g.info.iter - w.info.iter) / max(w.info.iter, 1)
+        dx = float(np.abs(g.x - w.x).max())
+        row = dict(family=name, formats=list(fg), status_card=g.info.status,
+                   status_cpu=w.info.status, iter_card=g.info.iter, iter_cpu=w.info.iter,
+                   iter_gap=gap, cg_card=g.info.cg_iters, cg_cpu=w.info.cg_iters,
+                   status_polish_card=g.info.status_polish,
+                   status_polish_cpu=w.info.status_polish, x_diff=dx,
+                   x_inf=float(np.abs(w.x).max()))
+        if sensitive:
+            row['residual_over_bound'] = [sparse_residual_check(P, A, l, u, q, r.x, r.y, EPS,
+                                                                hold=False) for r in (g, w)]
+            dense = Aw.todense()
+            rng = np.random.default_rng(9)
+            errs = []
+            for Mg, Mw, S in ((Ag, Aw, dense), (Ag.T, Aw.T, dense.T)):
+                x = torch.as_tensor(rng.standard_normal(S.shape[1]), dtype=torch.float64)
+                diff = ((Mg @ x.to(DEV)).cpu() - Mw @ x).abs()
+                errs.append(float((diff / (S.abs() @ x.abs()).clamp(min=1e-300)).max()))
+            row['operator_rel_err'] = errs
+        print('card vs cpu:', json.dumps(row), flush=True)
+        if fg != fw or g.info.status != w.info.status or g.info.status != 'solved':
+            raise AssertionError(f'{name}: card {fg} {g.info.status} vs cpu {fw} '
+                                 f'{w.info.status}')
+        if sensitive:
+            for r in (g, w):
+                sparse_residual_check(P, A, l, u, q, r.x, r.y, EPS)
+            if max(row['operator_rel_err']) > 1e-12:
+                raise AssertionError(f'{name}: the card\'s products differ from the CPU\'s: {row}')
+        elif gap > 0.05 or dx > 1e-6 * max(row['x_inf'], 1e-300):
+            raise AssertionError(f'{name}: iterations or x apart: {row}')
+        rows.append(row)
+    return rows
+
+
+def derivative_problem(n, m, equalities=0, loose=0, seed=0):
+    """tests/test_derivative.py::get_prob (numpy's global generator)."""
+    import scipy.sparse as sparse
+
+    np.random.seed(seed)
+    L = np.random.randn(n, n - 1)
+    P = sparse.csc_matrix(L.dot(L.T) + 0.1 * sparse.eye(n))
+    x_0 = np.random.randn(n)
+    s_0 = np.random.rand(m)
+    A = sparse.csc_matrix(np.random.randn(m, n))
+    u = A.dot(x_0) + s_0
+    l = A.dot(x_0) - s_0
+    u[:equalities] = l[:equalities]
+    l[equalities:equalities + loose] = -1e30
+    return P, np.random.randn(n), A, l, u
+
+
+def derivatives_card_vs_cpu():
+    """The derivative API on the card (float64 on the solver's device) after
+    a solve on the card, against ``solver.derivatives`` on the CPU from the
+    same x and y: adjoint (dP, dA, dq, dl, du) and forward (dx, dyl, dyu)
+    within 1e-9 of each output's largest entry.  tests/test_derivative.py's
+    problems and a dense random QP at n = 2000, m = 3000, whose API seconds
+    are recorded."""
+    from osqp_tpu_torch import OSQP
+    from osqp_tpu_torch.solver import derivatives as der
+
+    rows = []
+    for name, prob, eps in (
+            ('get_prob n=10 m=3', derivative_problem(10, 3, seed=4), 1e-9),
+            ('get_prob n=100 m=120 eq=20 loose=20',
+             derivative_problem(100, 120, 20, 20, seed=12), 1e-9),
+            ('random n=2000 m=3000', random_sparse_qp(2000, 3000, 0.002, seed=0), 1e-6)):
+        P, q, A, l, u = prob
+        m, n = A.shape
+        o = OSQP(device=DEV)
+        o.setup(P=P, q=q, A=A, l=l, u=u, eps_abs=eps, eps_rel=eps, max_iter=200000,
+                verbose=False)
+        r = o.solve(raise_error=True)
+        rng = np.random.default_rng(5)
+        dx, dy = rng.standard_normal(n), rng.standard_normal(m)
+        dq, du = rng.standard_normal(n), rng.standard_normal(m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o.adjoint_derivative_compute(dx=dx, dy=dy)
+        dP, dA = o.adjoint_derivative_get_mat(as_dense=True, dP_as_triu=False)
+        got = dict(zip(('dq', 'dl', 'du'), o.adjoint_derivative_get_vec()), dP=dP, dA=dA)
+        adj_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fwd = o.forward_derivative(dq=dq, du=du)
+        fwd_s = time.perf_counter() - t0
+        want = der.adjoint_derivative(P, q, A, l, u, r.x, r.y, dx, dy, device='cpu')
+        want_fwd = der.forward_derivative(P, q, A, l, u, r.x, r.y, dq=dq, du=du, device='cpu')
+        errs = {}
+        for k, g, w in [(k, got[k], want[k]) for k in want] + list(
+                zip(('dx', 'dyl', 'dyu'), fwd, want_fwd)):
+            scale = max(float(np.abs(w).max(initial=0.0)), 1e-300)
+            errs[k] = float(np.abs(g - w).max(initial=0.0)) / scale
+        worst = max(errs.values())
+        row = dict(problem=name, n=n, m=m, admm_iters=r.info.iter,
+                   active=int(np.count_nonzero(got['dl']) + np.count_nonzero(got['du'])),
+                   adjoint_s=adj_s, forward_s=fwd_s, max_rel_err=worst, rel_err=errs)
+        print('derivatives card vs cpu:', json.dumps(row), flush=True)
+        if not worst <= 1e-9:
+            raise AssertionError(f'{name}: derivatives card vs cpu {worst} > 1e-9')
+        rows.append(row)
+    return rows
+
+
 def main():
     import argparse
 
@@ -1136,7 +1702,7 @@ def main():
 
     # 2. build every kernel from the checkout's sources, in parallel
     t0 = time.perf_counter()
-    libs = _build.build_all(['shared_epoch', 'dia_matvec'])
+    libs = _build.build_all(['shared_epoch', 'dia_matvec', 'ell_matvec', 'bsr_matvec'])
     print(f'built {", ".join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s')
     for lib in libs:
         print(lib.with_suffix('.log').read_text().strip(), flush=True)
@@ -1199,8 +1765,37 @@ def main():
     print('time_limit (n=2^20):', json.dumps(tl), flush=True)
     print('SIGINT (n=2^20):', json.dumps(sigint_path(sp_run, tl['solve_time_s'])), flush=True)
     print('verbose (n=2^20):', json.dumps(verbose_path(sp_run)), flush=True)
+    del sp_run
 
-    # 8. the kernels line and the result line
+    # 8. the ELL, BSR and BCOO single-QP paths, each with its launch counts
+    # read around it, then K3 and K4 against their plain versions on those
+    # paths' own operators and on ragged shapes
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    fam = {}
+    fam['ell'], o = family_path('ell', lambda: ell_family(ELL_N), ('ell', 'ell'), 'ell_matvec')
+    k3_rows = ell_rows(kind, o, flush)
+    ladder_rows(o, 'ell')
+    del o
+    torch.cuda.empty_cache()
+    fam['bsr'], o = family_path('bsr', lambda: clustered_family(CLUSTER_NSB, CLUSTER_NSB),
+                                ('bsr', 'bsr'), 'bsr_matvec')
+    k4_rows = bsr_rows(kind, o, flush)
+    ladder_rows(o, 'bsr')
+    del o
+    torch.cuda.empty_cache()
+    fam['portfolio'], o = family_path(
+        'portfolio', lambda: portfolio_family(PORTFOLIO_N, PORTFOLIO_K), ('dia', 'bcoo'),
+        'dia_matvec', solved=False, profile_iters=200)
+    ladder_rows(o, 'portfolio')
+    del o
+    torch.cuda.empty_cache()
+
+    # 9. the three families card against CPU at a small size, and the
+    # derivatives card against CPU
+    families_card_vs_cpu()
+    derivatives_card_vs_cpu()
+
+    # 10. the kernels line and the result line
     head = rows[0]
     dia_head = dia_rows[0]  # P @ v, float32, n = 2^20: the sparse path's widest operator
     modes = {}
@@ -1228,7 +1823,22 @@ def main():
         ms=dia_head['ms'], plain_ms=dia_head['plain_ms'], bound_ms=dia_head['bound_ms'],
         bound_by=dia_head['bound_by'], library_ms=dia_head['library_ms'],
         shape=f"{dia_head['case']} D={dia_head['D']} m={dia_head['m_out']} {dia_head['dtype']}",
+        portfolio_launches=fam['portfolio']['launches']['dia_matvec'],
     )]
+    for name, rows_k, path, plain_of in (
+            ('ell_matvec', k3_rows, 'ell', 'osqp_tpu/ops/spmv.py:240'),
+            ('bsr_matvec', k4_rows, 'bsr', 'osqp_tpu/ops/spmv.py:297')):
+        # A @ v of the path's own operator, float64
+        head = next(r for r in rows_k if r['case'] == 'A @ v' and r['dtype'] == 'float64')
+        kernels.append(dict(
+            name=name, route='cuda', source=f'osqp_tpu_torch/ops/csrc/{name}.cu', replaces=None,
+            plain_of=plain_of, launches=fam[path]['launches'][name],
+            max_abs_err=max(r['max_abs_err'] for r in rows_k),
+            max_rel_err=max(r['max_rel_err'] for r in rows_k), ms=head['ms'],
+            cold_l2_ms=head['cold_l2_ms'], plain_ms=head['plain_ms'],
+            bound_ms=head['bound_ms'], bound_by=head['bound_by'],
+            library_ms=head['library_ms'],
+            shape=f"{head['case']} m={head['m']} n={head['n']} {head['dtype']} ({path} path)"))
     print(card_line)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

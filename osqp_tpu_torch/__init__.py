@@ -4,8 +4,9 @@ The port of ``osqp_tpu`` to torch tensors on an NVIDIA Hopper GPU.  It imports
 nothing of JAX or of ``osqp_tpu``.  Entry points run on CUDA unless the caller
 passes ``device='cpu'``.  It holds the shared-structure batched engine
 (``BatchedOSQP``), whose epoch runs as one hand-written CUDA kernel, and the
-single-QP front end (``OSQP``), whose sparse mode runs PCG on DIA operators
-with a hand-written CUDA matvec.
+single-QP front end (``OSQP``), whose sparse mode runs PCG on DIA, ELL or BSR
+operators with hand-written CUDA matvecs (or on cuSPARSE for ragged
+patterns), with the adjoint and forward derivatives of its solution.
 """
 
 import torch as _torch

@@ -11,8 +11,10 @@ Two modes, chosen at setup as the JAX package chooses them:
   direct mode factors ``M = P + sigma I + A' diag(rho) A`` by Cholesky,
   indirect mode runs PCG on dense matvecs;
 - sparse (``sparse=True``, or ``'auto'`` above 25M dense entries): Ruiz on the
-  host in scipy, P and A as DIA operators (``ops.spmv``) whose matvecs are the
-  hand-written CUDA kernel on the card, and always the indirect (PCG) solver.
+  host in scipy, P and A as sparse operators (``ops.spmv``: DIA, ELL, BSR,
+  or the CSR fallback for ragged patterns, each picked from its pattern by
+  the JAX package's ladder) whose matvecs are hand-written CUDA kernels on the
+  card (cuSPARSE for the fallback), and always the indirect (PCG) solver.
 
 ``solve`` runs the ADMM loop in one call, or in chunks between which it
 checks the clock (``time_limit``) and where a SIGINT stops it; then, for a
@@ -58,7 +60,8 @@ VERSION = '1.0.0.dev0'  # the version the verbose header prints, as the JAX pack
 def capabilities() -> int:
     return (CapabilitiesType.OSQP_CAPABILITY_DIRECT_SOLVER
             | CapabilitiesType.OSQP_CAPABILITY_INDIRECT_SOLVER
-            | CapabilitiesType.OSQP_CAPABILITY_UPDATE_MATRICES)
+            | CapabilitiesType.OSQP_CAPABILITY_UPDATE_MATRICES
+            | CapabilitiesType.OSQP_CAPABILITY_DERIVATIVES)
 
 
 def _poll_interrupt():
@@ -76,7 +79,7 @@ def _invalid():
 def _scale_csc(S, rowscale, colscale, mult=1.0):
     """rowscale[i] * S[i, j] * colscale[j] * mult, keeping the exact stored
     pattern (scipy's diags @ S @ diags would prune explicit zeros and change
-    the pinned DIA offsets across updates)."""
+    the pinned DIA offsets or ELL widths across updates)."""
     S = S.tocsc(copy=True)
     cols = np.repeat(np.arange(S.shape[1]), np.diff(S.indptr))
     S.data = S.data * rowscale[S.indices] * colscale[cols] * mult
@@ -270,14 +273,14 @@ class Solver:
     def _polish(self, res):
         """Polish the ADMM solution in float64 (``jax_backend.py``: the Schur
         operator's 1/delta conditioning defeats float32).  Data, scaling and
-        iterates are cast to float64 for this call only; DIA operands keep
-        their offsets.  Returns the polish result, the float64 data and
+        iterates are cast to float64 for this call only; sparse operands keep
+        their patterns.  Returns the polish result, the float64 data and
         scaling."""
         f64 = torch.float64
         d = self._data
 
         def cast(M):
-            return M.astype(f64) if isinstance(M, spmv.DiaMatrix) else M.to(f64)
+            return M.astype(f64) if spmv.is_structured(M) else M.to(f64)
 
         data = core.QPData(P=cast(d.P), q=d.q.to(f64), A=cast(d.A), l=d.l.to(f64),
                            u=d.u.to(f64))

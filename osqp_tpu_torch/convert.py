@@ -9,9 +9,10 @@ both loops from identical state and holds the loop apart from setup.
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
-from .ops.spmv import DiaMatrix
+from .ops.spmv import BsrMatrix, DiaMatrix, EllMatrix, coo_from_scipy
 from .settings import np_dtype
 from .solver.core import Factor, Iterates, QPData, RhoState, Scaling
 
@@ -42,8 +43,12 @@ def from_jax_solver(arrays, device, dtype):
 
     ``arrays`` is a dict of numpy arrays:
 
-    - ``P``, ``A``: a 2-D array (dense mode), or for a DIA operator a dict
-      with ``bands``, ``offsets``, ``bands_t``, ``offsets_t`` and ``shape``;
+    - ``P``, ``A``: a 2-D array (dense mode), or a sparse operator's state as
+      a dict with its ``shape`` and: ``bands``, ``offsets``, ``bands_t``,
+      ``offsets_t`` (DIA); ``data``, ``cols``, ``data_t``, ``cols_t`` (ELL);
+      ``blocks``, ``bcols``, ``blocks_t``, ``bcols_t``, ``dvec`` (BSR); or
+      ``data`` and ``indices`` (nnz, 2) of the row and column of each entry
+      (BCOO, carried as the port's ``CooMatrix``);
     - ``q``, ``l``, ``u``: the scaled vectors;
     - ``scal``: ``(D, Dinv, E, Einv, c, cinv)``;
     - ``rho``: ``(rho, rho_vec, rho_inv_vec, constr_type)``;
@@ -59,11 +64,24 @@ def from_jax_solver(arrays, device, dtype):
     def t(a):
         return torch.tensor(np.asarray(a, dtype=f), device=device)
 
+    def i32(a):
+        return torch.tensor(np.asarray(a, dtype=np.int32), device=device)
+
     def op(M):
-        if isinstance(M, dict):
+        if not isinstance(M, dict):
+            return t(M)
+        if 'bands' in M:
             return DiaMatrix(t(M['bands']), M['offsets'], t(M['bands_t']), M['offsets_t'],
                              M['shape'])
-        return t(M)
+        if 'cols' in M:
+            return EllMatrix(t(M['data']), i32(M['cols']), t(M['data_t']), i32(M['cols_t']),
+                             M['shape'])
+        if 'blocks' in M:
+            return BsrMatrix(t(M['blocks']), i32(M['bcols']), t(M['blocks_t']),
+                             i32(M['bcols_t']), t(M['dvec']), M['shape'])
+        ij = np.asarray(M['indices'])
+        return coo_from_scipy(sp.coo_matrix((np.asarray(M['data']), (ij[:, 0], ij[:, 1])),
+                                            shape=M['shape']), dtype, device)
 
     data = QPData(P=op(arrays['P']), q=t(arrays['q']), A=op(arrays['A']),
                   l=t(arrays['l']), u=t(arrays['u']))

@@ -2,10 +2,11 @@
 
 The port's own copy of ``osqp_tpu/interface.py``'s ``OSQP``: problem
 ingestion and validation, settings with their deprecation shims and aliases,
-the solve / update lifecycle and warm starts, over the single backend
+the solve / update lifecycle and warm starts, and the adjoint and forward
+derivatives of the solution (``solver.derivatives``), over the single backend
 ``osqp_tpu_torch.backend.Solver``.  There is one backend, so there is no
-algebra registry.  Code generation and the derivative API are not ported yet
-and raise ``NotImplementedError``.
+algebra registry.  Code generation is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from .constants import (
 from .device import resolve_device
 from .exceptions import OSQPException
 from .ops.spmv import DENSE_BUDGET_BYTES
+from .solver import derivatives
 
 # Settings understood by the solver, with reference defaults.
 DEFAULT_SETTINGS = {
@@ -88,7 +90,6 @@ _INFO_FIELDS = (
 )
 
 _LATER_CODEGEN = 'code generation is not ported yet (ROADMAP.md Queue 1: codegen)'
-_LATER_DERIV = 'the derivative API is not ported yet (ROADMAP.md Queue 1: derivatives)'
 
 
 class OSQPSettings(SimpleNamespace):
@@ -110,7 +111,7 @@ class OSQP:
     public API of ``osqp_tpu.OSQP``.  ``dtype`` is the working precision
     (float64 by default, float32 on request); ``device`` defaults to the
     current CUDA device and raises without one; ``sparse`` ('auto', True,
-    False) selects sparse mode (DIA operators, PCG); ``sparse_format`` forces
+    False) selects sparse mode (sparse operators, PCG); ``sparse_format`` forces
     an operator format and ``dense_budget_bytes`` bounds the dense format.
     """
 
@@ -390,19 +391,77 @@ class OSQP:
         self._cache['results'] = results
         return results
 
+    # -- derivatives -------------------------------------------------------
+
+    def _derivative_results(self):
+        try:
+            results = self._cache['results']
+        except KeyError:
+            raise ValueError('Problem has not been solved. You cannot take derivatives. '
+                             'Please call the solve function.')
+        if results.info.status_val != int(SolverStatus.OSQP_SOLVED):
+            raise ValueError('Problem has not been solved to optimality. '
+                             'You cannot take derivatives')
+        return results
+
+    def _derivative_data(self):
+        c = self._cache
+        return dict(P=c['P'], q=c['q'], A=c['A'], l=c['l'], u=c['u'],
+                    device=self._solver_kwargs['device'])
+
+    def adjoint_derivative_compute(self, dx=None, dy=None):
+        """Adjoint derivatives of a loss with seeds ``dx`` (n,) and ``dy``
+        (m,) at the last solution, which must be solved to optimality
+        (``solver.derivatives.adjoint_derivative``, float64 on the solver's
+        device); read them with ``adjoint_derivative_get_mat`` and
+        ``adjoint_derivative_get_vec``."""
+        results = self._derivative_results()
+        dx = np.zeros(self.n) if dx is None else np.asarray(dx, np.float64)
+        dy = np.zeros(self.m) if dy is None else np.asarray(dy, np.float64)
+        self._cache['derivs'] = derivatives.adjoint_derivative(
+            x=results.x, y=results.y, dx=dx, dy=dy, **self._derivative_data())
+
+    def _derivs(self):
+        self._derivative_results()
+        derivs = self._cache.get('derivs')
+        if derivs is None:
+            raise ValueError('Call adjoint_derivative_compute first')
+        return derivs
+
+    def adjoint_derivative_get_mat(self, as_dense=True, dP_as_triu=True):
+        """``(dP, dA)``: dense numpy arrays, or CSC matrices with
+        ``as_dense=False``.  ``dP`` is the gradient with respect to the full
+        symmetric P (each entry on its own), or with ``dP_as_triu`` with
+        respect to its upper triangle (the two halves of an off-diagonal
+        entry added), on P's pattern when sparse."""
+        derivs = self._derivs()
+        dP, dA = derivs['dP'], derivs['dA']
+        if dP_as_triu:
+            dP_dense = np.triu(dP + dP.T) - np.diag(np.diag(dP))
+            P_triu = spa.triu(self._cache['P'], format='csc').tocoo()
+            dP_out = spa.csc_matrix((dP_dense[P_triu.row, P_triu.col],
+                                     (P_triu.row, P_triu.col)), shape=P_triu.shape)
+        else:
+            dP_dense = dP
+            dP_out = spa.csc_matrix(dP)
+        if as_dense:
+            return dP_dense, np.asarray(dA)
+        return dP_out, spa.csc_matrix(dA)
+
+    def adjoint_derivative_get_vec(self):
+        """``(dq, dl, du)`` as numpy arrays."""
+        derivs = self._derivs()
+        return derivs['dq'], derivs['dl'], derivs['du']
+
+    def forward_derivative(self, dP=None, dq=None, dA=None, dl=None, du=None):
+        """Directional derivatives ``(dx, dyl, dyu)`` of the solution in the
+        data direction ``(dP, dq, dA, dl, du)``
+        (``solver.derivatives.forward_derivative``)."""
+        results = self._derivative_results()
+        return derivatives.forward_derivative(x=results.x, y=results.y, dP=dP, dq=dq, dA=dA,
+                                              dl=dl, du=du, **self._derivative_data())
+
     # -- not ported yet ----------------------------------------------------
 
     def codegen(self, *args, **kwargs):
         raise NotImplementedError(_LATER_CODEGEN)
-
-    def adjoint_derivative_compute(self, *args, **kwargs):
-        raise NotImplementedError(_LATER_DERIV)
-
-    def adjoint_derivative_get_mat(self, *args, **kwargs):
-        raise NotImplementedError(_LATER_DERIV)
-
-    def adjoint_derivative_get_vec(self, *args, **kwargs):
-        raise NotImplementedError(_LATER_DERIV)
-
-    def forward_derivative(self, *args, **kwargs):
-        raise NotImplementedError(_LATER_DERIV)

@@ -1,31 +1,47 @@
-"""Sparse matrix operators for the indirect (PCG) path: the DIA part of
-``osqp_tpu/ops/spmv.py`` on torch tensors.
+"""Sparse matrix operators for the indirect (PCG) path: ``osqp_tpu/ops/spmv.py``
+on torch tensors.
 
-``DiaMatrix`` keeps a matrix as its distinct non-zero diagonals (bands),
-with the transpose's bands built on the host, so ``S @ v`` and ``S.T @ y``
-are both shifted multiply-adds with no gather.  Every product goes through
-``ops.dia_matvec.dia_matvec``: the hand-written CUDA kernel on the card, its
-plain version on the CPU.
+Four operator classes with one surface (``@`` on a vector, ``.T``,
+``astype``, ``diag()``, ``gram_diag(rho)``, ``shape``, ``dtype``,
+``device``), each holding its transpose too, so ``S.T @ y`` costs what
+``S @ v`` costs:
+
+- ``DiaMatrix``: the distinct non-zero diagonals (bands), for banded
+  patterns; products go through ``ops.dia_matvec`` (K2);
+- ``EllMatrix``: padded rows (ELLPACK), for even row occupancy; products go
+  through ``ops.ell_matvec`` (K3);
+- ``BsrMatrix``: block-ELL with dense (8, 128) blocks, for clustered
+  patterns; products go through ``ops.bsr_matvec`` (K4);
+- ``CooMatrix``: the fallback for ragged patterns (the JAX package's BCOO),
+  held as ``torch.sparse_csr_tensor``s whose products are ``torch.sparse``'s
+  (cuSPARSE on the card).
+
+Each kernel wrapper launches its hand-written CUDA kernel on the card and
+runs its plain version on the CPU.  A ``'dense'`` operator is a plain tensor
+(``@`` is ``torch.matmul``).
 
 ``choose_format`` is a copy of the JAX package's format ladder, thresholds
-and cost helpers unchanged (including the 4-byte dense size), so both
-packages pick the same format for the same pattern; its environment knobs are
-arguments here.  ``from_scipy`` builds ``'dia'`` and ``'dense'`` operators;
-the ELL, BSR and BCOO formats are not ported yet and raise.
+and cost helpers unchanged (including the 4-byte dense size and the TPU's
+(8, 128) blocks), so both packages pick the same format for the same
+pattern; its environment knobs are arguments here.  ``from_scipy`` builds
+every format.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from ..settings import np_dtype
+from .bsr_matvec import C as _BSR_C, R as _BSR_R, bsr_matvec
 from .dia_matvec import dia_matvec
+from .ell_matvec import ell_matvec
 
 DENSE_BUDGET_BYTES = 2_000_000_000
 FORMATS = ('auto', 'dia', 'bsr', 'dense', 'ell', 'bcoo')
-_LATER_FORMATS = ("the {} sparse format is not ported yet (ROADMAP.md Queue 1: the ELL, BSR "
-                  "and BCOO formats); banded patterns run as 'dia', others fit as 'dense'")
 
 
 class DiaMatrix:
@@ -102,12 +118,291 @@ def dia_from_scipy(S, dtype=torch.float32, device='cpu'):
 
 
 # ---------------------------------------------------------------------------
+# ELL
+# ---------------------------------------------------------------------------
+
+
+class EllMatrix:
+    """Padded-row (ELLPACK) sparse matrix of shape (m, n).
+
+    ``data[i, k]`` and ``cols[i, k]`` hold up to K entries of row i, padded
+    with zero data at column 0; ``data_t`` and ``cols_t`` hold the
+    transpose's, so both orientations are a row gather."""
+
+    def __init__(self, data, cols, data_t, cols_t, shape):
+        self.data = data          # (m, K)
+        self.cols = cols          # (m, K) int32
+        self.data_t = data_t      # (n, Kt)
+        self.cols_t = cols_t      # (n, Kt) int32
+        self.shape = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self):
+        return self.data.device
+
+    @property
+    def T(self):
+        return EllMatrix(self.data_t, self.cols_t, self.data, self.cols,
+                         (self.shape[1], self.shape[0]))
+
+    def astype(self, dtype):
+        return EllMatrix(self.data.to(dtype), self.cols, self.data_t.to(dtype), self.cols_t,
+                         self.shape)
+
+    def __matmul__(self, v):
+        if v.dim() != 1:
+            raise TypeError('EllMatrix only supports matrix-vector products')
+        return ell_matvec(self.data, self.cols, v)
+
+    def diag(self):
+        """Main diagonal (square matrices)."""
+        rows = torch.arange(self.shape[0], dtype=self.cols.dtype, device=self.device)[:, None]
+        return torch.where(self.cols == rows, self.data, 0.0).sum(1)
+
+    def gram_diag(self, rho):
+        """diag(S' diag(rho) S): the transpose's squared data times rho."""
+        return ell_matvec(self.data_t * self.data_t, self.cols_t, rho)
+
+    def todense(self):
+        m, n = self.shape
+        rows = torch.arange(m, device=self.device)[:, None].expand(self.cols.shape)
+        out = torch.zeros((m, n), dtype=self.dtype, device=self.device)
+        return out.index_put_((rows, self.cols.long()), self.data, accumulate=True)
+
+
+def _ell_arrays(S, dtype):
+    R = S.tocsr()
+    R.sum_duplicates()
+    m = R.shape[0]
+    counts = np.diff(R.indptr)
+    K = max(int(counts.max()) if m and counts.size else 0, 1)
+    data = np.zeros((m, K), dtype=dtype)
+    cols = np.zeros((m, K), dtype=np.int32)
+    if R.nnz:
+        rows = np.repeat(np.arange(m), counts)
+        pos = np.arange(R.nnz) - np.repeat(R.indptr[:-1], counts)
+        data[rows, pos] = R.data
+        cols[rows, pos] = R.indices
+    return data, cols
+
+
+def ell_from_scipy(S, dtype=torch.float32, device='cpu'):
+    """An EllMatrix (with its transpose) from any scipy sparse matrix; packed
+    on the host at ``dtype`` and moved to ``device``."""
+    f = np_dtype(dtype)
+    data, cols = _ell_arrays(S, f)
+    data_t, cols_t = _ell_arrays(S.T, f)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return EllMatrix(t(data), t(cols), t(data_t), t(cols_t), S.shape)
+
+
+# ---------------------------------------------------------------------------
+# BSR (block-ELL)
+# ---------------------------------------------------------------------------
+
+# The block (_BSR_R, _BSR_C) = (8, 128) is the JAX package's, one float32 TPU
+# tile.  It is kept because the ladder's costs (_bsr_cost) are counted in it
+# and both packages must pick alike.
+
+
+class BsrMatrix:
+    """Block-ELL sparse matrix of shape (m, n) with dense (8, 128) blocks.
+
+    ``blocks[i, k]`` is the k-th stored block of block-row i and
+    ``bcols[i, k]`` its block-column; block-rows with fewer blocks are padded
+    with zero blocks at block-column 0.  The transpose's blocks are stored
+    too.  The main diagonal ``dvec`` is built on the host."""
+
+    def __init__(self, blocks, bcols, blocks_t, bcols_t, dvec, shape):
+        self.blocks = blocks      # (nbr, Kb, 8, 128)
+        self.bcols = bcols        # (nbr, Kb) int32
+        self.blocks_t = blocks_t  # (nbc, Kt, 8, 128) for S.T
+        self.bcols_t = bcols_t
+        self.dvec = dvec          # (min(m, n),)
+        self.shape = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.blocks.dtype
+
+    @property
+    def device(self):
+        return self.blocks.device
+
+    @property
+    def T(self):
+        return BsrMatrix(self.blocks_t, self.bcols_t, self.blocks, self.bcols, self.dvec,
+                         (self.shape[1], self.shape[0]))
+
+    def astype(self, dtype):
+        return BsrMatrix(self.blocks.to(dtype), self.bcols, self.blocks_t.to(dtype),
+                         self.bcols_t, self.dvec.to(dtype), self.shape)
+
+    def __matmul__(self, v):
+        if v.dim() != 1:
+            raise TypeError('BsrMatrix only supports matrix-vector products')
+        return bsr_matvec(self.blocks, self.bcols, v, self.shape[0])
+
+    def diag(self):
+        """Main diagonal, zero past min(m, n) (as the JAX package pads it)."""
+        return _pad_diag(self.dvec, self.shape[0])
+
+    def gram_diag(self, rho):
+        """diag(S' diag(rho) S): the squared transpose blocks times rho."""
+        return bsr_matvec(self.blocks_t * self.blocks_t, self.bcols_t, rho, self.shape[1])
+
+    def todense(self):
+        nbr, Kb, R, C = self.blocks.shape
+        m, n = self.shape
+        nbc = -(-n // C)
+        out = torch.zeros((nbr, nbc, R, C), dtype=self.dtype, device=self.device)
+        rows = torch.arange(nbr, device=self.device)[:, None].expand(self.bcols.shape)
+        out.index_put_((rows, self.bcols.long()), self.blocks, accumulate=True)
+        return out.permute(0, 2, 1, 3).reshape(nbr * R, nbc * C)[:m, :n]
+
+
+def _pad_diag(d, m):
+    if d.shape[0] < m:
+        d = torch.cat([d, d.new_zeros((m - d.shape[0],))])
+    return d
+
+
+def _bsr_arrays(S, dtype, R=_BSR_R, C=_BSR_C):
+    """Host-side block-ELL packing of a scipy sparse matrix."""
+    Coo = S.tocoo()
+    Coo.sum_duplicates()
+    m, n = Coo.shape
+    nbr, nbc = -(-m // R), -(-n // C)
+    if Coo.nnz == 0:
+        return np.zeros((nbr, 1, R, C), dtype), np.zeros((nbr, 1), np.int32)
+    br = Coo.row // R
+    bc = Coo.col // C
+    bid = br.astype(np.int64) * nbc + bc
+    uniq, inv = np.unique(bid, return_inverse=True)
+    ubr, ubc = uniq // nbc, uniq % nbc
+    counts = np.bincount(ubr, minlength=nbr)
+    Kb = max(int(counts.max()), 1)
+    # slot of each stored block within its block-row
+    starts = np.zeros(nbr + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    slot = np.arange(uniq.size) - starts[ubr]
+    blocks = np.zeros((nbr, Kb, R, C), dtype)
+    bcols = np.zeros((nbr, Kb), np.int32)
+    bcols[ubr, slot] = ubc
+    blocks[ubr[inv], slot[inv], Coo.row % R, Coo.col % C] = Coo.data
+    return blocks, bcols
+
+
+def bsr_from_scipy(S, dtype=torch.float32, device='cpu'):
+    """A BsrMatrix (with its transpose blocks) from any scipy sparse matrix;
+    packed on the host at ``dtype`` and moved to ``device``."""
+    f = np_dtype(dtype)
+    blocks, bcols = _bsr_arrays(S, f)
+    blocks_t, bcols_t = _bsr_arrays(S.T, f)
+    dvec = np.asarray(S.tocsr().diagonal()[:min(S.shape)], f)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return BsrMatrix(t(blocks), t(bcols), t(blocks_t), t(bcols_t), t(dvec), S.shape)
+
+
+# ---------------------------------------------------------------------------
+# The BCOO fallback: torch.sparse CSR
+# ---------------------------------------------------------------------------
+
+
+def _csr_tensor(indptr, indices, values, shape):
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter('ignore', UserWarning)
+        return torch.sparse_csr_tensor(indptr, indices, values, size=shape,
+                                       check_invariants=False)
+
+
+def _with_values(csr, values):
+    """A CSR tensor with ``csr``'s pattern and new values."""
+    return _csr_tensor(csr.crow_indices(), csr.col_indices(), values, csr.shape)
+
+
+class CooMatrix:
+    """The ladder's last resort for ragged patterns (the JAX package leaves
+    them to ``jax.experimental.sparse.BCOO``), of shape (m, n).
+
+    The matrix and its transpose are ``torch.sparse_csr_tensor``s built on
+    the host; products are ``torch.sparse``'s (cuSPARSE on the card), so no
+    kernel of the port runs here.  The main diagonal ``dvec`` is built on the
+    host.  A bare sparse tensor is also a ``torch.Tensor`` and would take the
+    core's dense branches; this class keeps it out of them."""
+
+    def __init__(self, csr, csr_t, dvec, shape):
+        self.csr = csr        # (m, n)
+        self.csr_t = csr_t    # (n, m)
+        self.dvec = dvec      # (min(m, n),)
+        self.shape = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.csr.dtype
+
+    @property
+    def device(self):
+        return self.csr.device
+
+    @property
+    def T(self):
+        return CooMatrix(self.csr_t, self.csr, self.dvec, (self.shape[1], self.shape[0]))
+
+    def astype(self, dtype):
+        return CooMatrix(_with_values(self.csr, self.csr.values().to(dtype)),
+                         _with_values(self.csr_t, self.csr_t.values().to(dtype)),
+                         self.dvec.to(dtype), self.shape)
+
+    def __matmul__(self, v):
+        if v.dim() != 1:
+            raise TypeError('CooMatrix only supports matrix-vector products')
+        return self.csr @ v
+
+    def diag(self):
+        """Main diagonal, zero past min(m, n)."""
+        return _pad_diag(self.dvec, self.shape[0])
+
+    def gram_diag(self, rho):
+        """diag(S' diag(rho) S): the squared transpose times rho."""
+        vals = self.csr_t.values()
+        return _with_values(self.csr_t, vals * vals) @ rho
+
+    def todense(self):
+        return self.csr.to_dense()
+
+
+def coo_from_scipy(S, dtype=torch.float32, device='cpu'):
+    """A CooMatrix from any scipy sparse matrix: both orientations as CSR
+    (int64 indices, duplicates summed), built on the host at ``dtype``."""
+    f = np_dtype(dtype)
+
+    def csr(M):
+        M = sp.csr_matrix(M)
+        M.sum_duplicates()
+        return _csr_tensor(torch.as_tensor(M.indptr.astype(np.int64), device=device),
+                           torch.as_tensor(M.indices.astype(np.int64), device=device),
+                           torch.as_tensor(M.data.astype(f), device=device), M.shape)
+
+    dvec = np.asarray(sp.csr_matrix(S).diagonal()[:min(S.shape)], f)
+    return CooMatrix(csr(S), csr(S.T), torch.as_tensor(dvec, device=device), S.shape)
+
+
+def is_structured(M) -> bool:
+    """True for the port's sparse operator classes (not for a dense tensor)."""
+    return isinstance(M, (DiaMatrix, EllMatrix, BsrMatrix, CooMatrix))
+
+
+# ---------------------------------------------------------------------------
 # Format selection (thresholds copied from osqp_tpu/ops/spmv.py unchanged)
 # ---------------------------------------------------------------------------
 
 _WASTE_LIMIT = 5.0
 _DIA_MAX_BANDS = 1024
-_BSR_R, _BSR_C = 8, 128
 _BSR_WASTE_LIMIT = 24.0
 _BSR_VS_DENSE = 4.0
 _ELL_VS_DENSE = 320.0
@@ -175,13 +470,16 @@ def choose_format(S, sparse_format='auto', dense_budget_bytes=DENSE_BUDGET_BYTES
     return 'bcoo'
 
 
+_BUILDERS = {'dia': dia_from_scipy, 'ell': ell_from_scipy, 'bsr': bsr_from_scipy,
+             'bcoo': coo_from_scipy}
+
+
 def from_scipy(S, dtype=torch.float32, fmt='dia', device='cpu'):
-    """scipy sparse -> a DiaMatrix (``'dia'``) or a dense tensor
-    (``'dense'``, whose ``@`` is ``torch.matmul``)."""
-    if fmt == 'dia':
-        return dia_from_scipy(S, dtype, device)
+    """scipy sparse -> the operator of format ``fmt``: a DiaMatrix, EllMatrix,
+    BsrMatrix or CooMatrix (``'bcoo'``), or a dense tensor (``'dense'``,
+    whose ``@`` is ``torch.matmul``)."""
     if fmt == 'dense':
         return torch.as_tensor(S.toarray(), dtype=dtype, device=device)
-    if fmt in ('ell', 'bsr', 'bcoo'):
-        raise NotImplementedError(_LATER_FORMATS.format(repr(fmt)))
-    raise ValueError(f'unknown sparse format {fmt!r}')
+    if fmt not in _BUILDERS:
+        raise ValueError(f'unknown sparse format {fmt!r}')
+    return _BUILDERS[fmt](S, dtype, device)

@@ -13,8 +13,10 @@ Here it is a host loop over epochs (``solve_scaled``) that reads on the host
 the values that decide branches: the termination check's outcome once per
 check epoch, the rho estimate once per adaptation epoch and, in indirect
 mode, the CG residual norm once per CG step.  Each read is one host sync and
-is counted.  P and A are dense tensors or ``ops.spmv.DiaMatrix`` operators;
-the core only uses ``@``, ``.T`` and ``.shape`` on them.
+is counted.  P and A are dense tensors or sparse operators of ``ops.spmv``
+(``DiaMatrix``, ``EllMatrix``, ``BsrMatrix``, ``CooMatrix``); the loop only
+uses ``@``, ``.T`` and ``.shape`` on them, the preconditioner ``diag()`` and
+``gram_diag()``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import spmv
 from ..settings import CoreSettings, np_dtype
 from ..utils.printing import print_loop_row
 from ..constants import (
@@ -50,7 +53,7 @@ _MAX_ITER = int(SolverStatus.OSQP_MAX_ITER_REACHED)
 _NON_CVX = int(SolverStatus.OSQP_NON_CVX)
 
 class QPData(NamedTuple):
-    """Scaled problem data: P and A dense tensors or DIA operators."""
+    """Scaled problem data: P and A dense tensors or sparse operators."""
 
     P: object  # (n, n) symmetric
     q: torch.Tensor  # (n,)
@@ -241,17 +244,17 @@ def build_M(P, A, sigma, rho_vec):
 
 
 def mat_diag(P):
-    """Diagonal of a dense or DIA square matrix."""
-    if isinstance(P, torch.Tensor):
-        return torch.diagonal(P)
-    return P.diag()
+    """Diagonal of a dense or sparse-operator square matrix."""
+    if spmv.is_structured(P):
+        return P.diag()
+    return torch.diagonal(P)
 
 
 def gram_diag(A, rho_vec):
-    """diag(A' diag(rho) A) for a dense or DIA A."""
-    if isinstance(A, torch.Tensor):
-        return torch.sum(rho_vec[:, None] * A * A, dim=0)
-    return A.gram_diag(rho_vec)
+    """diag(A' diag(rho) A) for a dense or sparse-operator A."""
+    if spmv.is_structured(A):
+        return A.gram_diag(rho_vec)
+    return torch.sum(rho_vec[:, None] * A * A, dim=0)
 
 
 def build_M_diag(P, A, sigma, rho_vec):
@@ -766,7 +769,7 @@ def polish(data: QPData, scal: Scaling, settings: CoreSettings, delta, refine_it
     of A are masked to zero, which makes the (2,2) block enforce ``y_i = 0``
     exactly for inactive constraints.
 
-    Dense data: Cholesky of the Schur form.  DIA data (sparse mode):
+    Dense data: Cholesky of the Schur form.  Sparse operators (sparse mode):
     diagonally-preconditioned CG on the same operator, matvec-only, so the
     reduced system is never materialized; each CG step reads its residual
     norm on the host.  ``delta``, ``pri_res`` and ``dua_res`` are host
@@ -777,7 +780,7 @@ def polish(data: QPData, scal: Scaling, settings: CoreSettings, delta, refine_it
     dtype = x.dtype
     f = np_dtype(dtype)
     delta = f(delta)
-    sparse_mode = not (isinstance(data.P, torch.Tensor) and isinstance(data.A, torch.Tensor))
+    sparse_mode = spmv.is_structured(data.P) or spmv.is_structured(data.A)
 
     if m:
         low = (z - data.l) < -y  # lower-active guess (ref _osqp.py:1719)

@@ -152,9 +152,15 @@ def test_choose_format_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize('fmt', ['ell', 'bsr', 'bcoo'])
 def test_unported_formats_raise(fmt):
+    """The ELL, BSR and BCOO formats, which raised before they were ported,
+    now build operators that reproduce the matrix; an unknown format still
+    raises."""
     S = _random_banded(20, 20, (-1, 0, 1))
-    with pytest.raises(NotImplementedError, match='ELL, BSR'):
-        tspmv.from_scipy(S, torch.float64, fmt)
+    M = tspmv.from_scipy(S, torch.float64, fmt)
+    assert tspmv.is_structured(M)
+    np.testing.assert_array_equal(M.todense().numpy(), S.toarray())
+    with pytest.raises(ValueError, match='unknown sparse format'):
+        tspmv.from_scipy(S, torch.float64, 'csr')
 
 
 def test_dense_format_is_a_dense_tensor():

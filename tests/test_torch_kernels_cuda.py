@@ -12,7 +12,9 @@ import torch
 
 from osqp_tpu_torch import OSQP, BatchedOSQP
 from osqp_tpu_torch import batch_shared as tbs
+from osqp_tpu_torch.ops import bsr_matvec as tbm
 from osqp_tpu_torch.ops import dia_matvec as tdm
+from osqp_tpu_torch.ops import ell_matvec as tem
 from osqp_tpu_torch.ops import shared_epoch as tse
 from osqp_tpu_torch.settings import OracleSettings, default_core_settings
 
@@ -275,3 +277,75 @@ def test_sparse_osqp_on_cuda_matches_cpu_f64():
         assert got.info.iter == want.info.iter
         assert got.info.cg_iters == want.info.cg_iters
         np.testing.assert_allclose(got.x, want.x, rtol=0, atol=1e-9)
+
+
+def _rel_err(got, want, scale):
+    """max |got - want| relative to each row's sum of |a| |v|."""
+    return float(((got - want).abs() / scale.clamp(min=torch.finfo(scale.dtype).tiny)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m, n, K', [(5003, 4001, 3), (4001, 5003, 13), (777, 900, 40),
+                                     (1000, 1000, 1)])
+def test_ell_matvec_matches_plain_on_cuda(m, n, K):
+    """K3 against its plain version on the card at m != n, K = 3, 13, 40
+    (over one warp) and 1, with pads at column 0, both dtypes: each row
+    within 1e-5 (f32) or 1e-12 (f64) of its sum of |a| |v| (the kernel sums
+    in another order, with FMA); a non-finite v[0] reaches the padded rows
+    as in the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    rng = np.random.default_rng(K)
+    cols_h = rng.integers(1, n, (m, K)).astype(np.int32)
+    pad = rng.random((m, K)) < 0.2
+    data_h = rng.standard_normal((m, K))
+    data_h[pad], cols_h[pad] = 0.0, 0
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        data = torch.as_tensor(data_h, dtype=dtype, device='cuda')
+        cols = torch.as_tensor(cols_h, device='cuda')
+        v = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device='cuda')
+        before = tem.launches
+        got = tem.ell_matvec(data, cols, v)
+        torch.cuda.synchronize()
+        assert tem.launches == before + 1
+        want = tem.ell_matvec_plain(data, cols, v)
+        assert _rel_err(got, want, tem.ell_matvec_plain(data.abs(), cols, v.abs())) <= tol
+        v[0] = float('inf')
+        got = tem.ell_matvec(data, cols, v)
+        assert torch.equal(got.isnan(), tem.ell_matvec_plain(data, cols, v).isnan())
+    with pytest.raises(ValueError, match='int32'):
+        tem.ell_matvec(data, cols.long(), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m, n, density', [(1000, 1000, 0.02), (4096, 640, 0.05),
+                                           (61, 1001, 0.3)])
+def test_bsr_matvec_matches_plain_on_cuda(m, n, density):
+    """K4 against its plain version on the card, m and n multiples of
+    neither 8 nor 128 (a partial last block-row and block-column, v not
+    padded), both dtypes, v aligned and not: each row within 1e-5 (f32) or
+    1e-12 (f64) of its sum of |a| |v|."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    import scipy.sparse as sp
+
+    from osqp_tpu_torch.ops import spmv
+
+    S = sp.random(m, n, density=density, random_state=np.random.default_rng(m), format='csc')
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        M = spmv.bsr_from_scipy(S, dtype, 'cuda')
+        buf = torch.as_tensor(np.random.default_rng(1).standard_normal(n + 1), dtype=dtype,
+                              device='cuda')
+        for v in (buf[:n], buf[1:]):  # 16-byte aligned, then not
+            for blocks, bcols, x, rows in ((M.blocks, M.bcols, v, m),
+                                           (M.blocks_t, M.bcols_t, v.new_ones(m), n)):
+                x = x.contiguous()
+                before = tbm.launches
+                got = tbm.bsr_matvec(blocks, bcols, x, rows)
+                torch.cuda.synchronize()
+                assert tbm.launches == before + 1 and got.shape == (rows,)
+                want = tbm.bsr_matvec_plain(blocks, bcols, x, rows)
+                scale = tbm.bsr_matvec_plain(blocks.abs(), bcols, x.abs(), rows)
+                assert _rel_err(got, want, scale) <= tol
+    with pytest.raises(ValueError, match='int32'):
+        tbm.bsr_matvec(M.blocks, M.bcols.long(), v.contiguous(), m)
