@@ -1248,6 +1248,14 @@ def portfolio_family(n, k, seed=0):
     return P, q, A, l, u
 
 
+def gap_over_bound(info, eps):
+    """The solver's duality gap over about its bound, eps (1 + max(|obj|,
+    |dual obj|)): the test that check_dualgap (on by default) adds to the
+    residuals' and that ``sparse_residual_check`` does not make."""
+    bound = eps + eps * max(abs(float(info.obj_val)), abs(float(info.dual_obj_val)))
+    return abs(float(info.duality_gap)) / bound
+
+
 def _launch_counters():
     from osqp_tpu_torch.ops import bsr_matvec as bm
     from osqp_tpu_torch.ops import dia_matvec as dm
@@ -1302,8 +1310,9 @@ def family_path(name, build, expect, kernel, solved=True, profile_iters=None):
     solver does not bring to eps 1e-3 within the default 4000 iterations:
     ROADMAP.md Queue 3), every step must end solved or at the iteration
     limit with finite iterates, a solved step must pass the host test, and
-    each step's ratio of residual to bound is reported.  Then a profile of
-    one more warm step, cut to ``profile_iters`` iterations when given.
+    each step's ratios of residual and of duality gap to their bounds are
+    reported.  Then a profile of one more warm step, cut to
+    ``profile_iters`` iterations when given.
     Returns the summary and the solver."""
     from osqp_tpu_torch import OSQP
 
@@ -1346,7 +1355,9 @@ def family_path(name, build, expect, kernel, solved=True, profile_iters=None):
         cold_solve_s=times[0], warm_solve_s=times[1:], statuses=statuses,
         admm_iters=[r.info.iter for r in results], cg_steps=[r.info.cg_iters for r in results],
         host_syncs=[r.info.host_syncs for r in results], launches=launches,
-        residual_over_bound=ratios, device_mem_gb=torch.cuda.memory_allocated() / 1e9)
+        residual_over_bound=ratios,
+        gap_over_bound=[gap_over_bound(r.info, EPS) for r in results],
+        device_mem_gb=torch.cuda.memory_allocated() / 1e9)
     if profile_iters:
         o.update_settings(max_iter=profile_iters)
     summary['profile'] = profile_family(o, q * 1.01 ** (FAMILY_WARM + 1))
@@ -1390,12 +1401,16 @@ def _csr_ell(csr):
     return data, cols
 
 
-def matvec_row(card, label, name, kern, plain, abs_plain, csr, v, nbytes, flops, flush, **shape):
+def matvec_row(card, label, name, kern, plain, abs_plain, csr, v, nbytes, flops, padded_bytes,
+               flush, **shape):
     """One kernel against its plain version on the card: the largest error
     relative to each row's sum of |a| |v| (f32 1e-5, f64 1e-12: the kernel
     sums in another order, with FMA), device ms with the L2 warm and cold,
     the plain version's and cuSPARSE's (``csr @ v``) device ms (all from
-    CUDA events, ``event_ms``), and the bound."""
+    CUDA events, ``event_ms``), and the bound.  ``nbytes`` and ``flops`` are
+    what the product needs (stored entries that are not padding, v and y
+    once): they give ``bound_ms``.  ``padded_bytes`` counts the padded arrays
+    the kernel reads; ``padded_bound_ms`` is their time alone."""
     f32_peak, f64_peak, mem_peak, _ = peaks(card)
     dtype = v.dtype
     got = kern()
@@ -1417,7 +1432,8 @@ def matvec_row(card, label, name, kern, plain, abs_plain, csr, v, nbytes, flops,
                cusparse_abs_diff=lib_diff, ms=ms, cold_l2_ms=cold,
                plain_ms=event_ms(plain, 20), library_ms=event_ms(lambda: csr @ v, 50),
                bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by='operations' if t_ops > t_bytes else 'bytes')
+               bound_by='operations' if t_ops > t_bytes else 'bytes',
+               padded_bound_ms=padded_bytes / mem_peak * 1e3)
     row.update(bound_share=row['bound_ms'] / ms, bound_share_cold_l2=row['bound_ms'] / cold)
     print(f'{name} vs plain:', json.dumps(row), flush=True)
     return row
@@ -1448,14 +1464,15 @@ def ell_rows(card, o, flush):
     rows = []
     for label, data, cols, n in arrays:
         m, K = data.shape
+        nnz = int((data != 0).sum())  # pads are zero data at column 0
         v = torch.as_tensor(rng.standard_normal(n), dtype=data.dtype, device=DEV)
         item = data.element_size()
         rows.append(matvec_row(
             card, label, 'ell_matvec', lambda: em.ell_matvec(data, cols, v),
             lambda: em.ell_matvec_plain(data, cols, v),
             lambda: em.ell_matvec_plain(data.abs(), cols, v.abs()), _ell_csr(data, cols, n), v,
-            m * K * (item + 4) + (m + n) * item, 2 * m * K, flush, m=m, n=n, K=K,
-            lanes_per_row=1 << em.group_log2(K)))
+            nnz * (item + 4) + (m + n) * item, 2 * nnz, m * K * (item + 4) + (m + n) * item,
+            flush, m=m, n=n, K=K, nnz=nnz, lanes_per_row=1 << em.group_log2(K)))
     return rows
 
 
@@ -1478,6 +1495,7 @@ def bsr_rows(card, o, flush):
     rows = []
     for label, blocks, bcols, (m, n) in arrays:
         nbr, Kb = bcols.shape
+        nb = int(blocks.flatten(2).ne(0).any(-1).sum())  # pads are zero blocks
         v = torch.as_tensor(rng.standard_normal(n), dtype=blocks.dtype, device=DEV)
         item = blocks.element_size()
         rows.append(matvec_row(
@@ -1485,8 +1503,9 @@ def bsr_rows(card, o, flush):
             lambda: bm.bsr_matvec_plain(blocks, bcols, v, m),
             lambda: bm.bsr_matvec_plain(blocks.abs(), bcols, v.abs(), m),
             _bsr_csr(blocks, bcols, m, n), v,
-            nbr * Kb * (1024 * item + 4) + (m + n) * item, 2 * nbr * Kb * 1024, flush,
-            m=m, n=n, nbr=nbr, Kb=Kb))
+            nb * (1024 * item + 4) + (m + n) * item, 2 * nb * 1024,
+            nbr * Kb * (1024 * item + 4) + (m + n) * item, flush,
+            m=m, n=n, nbr=nbr, Kb=Kb, blocks=nb))
     return rows
 
 
@@ -1837,7 +1856,7 @@ def main():
             max_rel_err=max(r['max_rel_err'] for r in rows_k), ms=head['ms'],
             cold_l2_ms=head['cold_l2_ms'], plain_ms=head['plain_ms'],
             bound_ms=head['bound_ms'], bound_by=head['bound_by'],
-            library_ms=head['library_ms'],
+            padded_bound_ms=head['padded_bound_ms'], library_ms=head['library_ms'],
             shape=f"{head['case']} m={head['m']} n={head['n']} {head['dtype']} ({path} path)"))
     print(card_line)
     print(json.dumps({'kernels': kernels}))

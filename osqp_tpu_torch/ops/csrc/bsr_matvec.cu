@@ -10,9 +10,11 @@
 // osqp_tpu_torch/ops/bsr_matvec.py::bsr_matvec_plain.  Padding blocks are
 // zero blocks at block-column 0 and are not skipped, as in the plain version.
 //
-// What bounds it: bytes.  The dense (8, 128) blocks dominate:
-// nbr Kb 1024 sizeof(T) bytes of blocks, nbr Kb 4 of block-columns, and v
-// and y once, over 3.35 TB/s.
+// What bounds it: bytes.  The dense (8, 128) blocks dominate: the product
+// needs the nb stored blocks that are not padding, nb 1024 sizeof(T) bytes,
+// nb 4 of block-columns, and v and y once, over 3.35 TB/s.  The kernel
+// reads all nbr Kb blocks, pads included, so where block-rows hold fewer
+// than Kb blocks it moves more than the product needs.
 //
 // Design: one warp per block-row.  Lane l owns columns 4l .. 4l + 3 of every
 // block: per block it loads those four entries of the v segment (one 16-byte

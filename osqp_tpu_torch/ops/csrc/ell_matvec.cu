@@ -10,9 +10,11 @@
 // non-finite v[0] spreads into every padded row as it does in the plain
 // version.
 //
-// What bounds it: bytes.  Each row reads K values and K int32 columns and
-// writes one value; the gathered entries of v cross device memory at least
-// once: (m K (sizeof(T) + 4) + (m + n) sizeof(T)) bytes over 3.35 TB/s.
+// What bounds it: bytes.  The product needs each stored entry that is not a
+// pad (nnz values and int32 columns), v at least once and y once:
+// (nnz (sizeof(T) + 4) + (m + n) sizeof(T)) bytes over 3.35 TB/s.  The
+// kernel reads the padded arrays, m K (sizeof(T) + 4) bytes, so on rows
+// shorter than K it moves more than the product needs.
 //
 // Design: a group of G lanes (a power of two up to 32, the least >= K) per
 // row, 256 / G rows per block.  Lane j of a group sums k = j, j + G, ...; as
