@@ -65,9 +65,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fallback, cuSPARSE).  Formats as expected, the path's kernel launched,
    every step solved and passing its f64 host termination test.  After the
    ELL and BSR paths, K3 and K4 against their plain versions on the path's
-   own operators (f64 and f32) and on ragged shapes, with error relative to
-   each row's sum of |a| |v| (f32 1e-5, f64 1e-12), device ms with the L2
-   warm and cold, the plain version's and cuSPARSE's times and the bound;
+   own operators (f64 and f32, with the operator's own per-row counts and
+   K3's lanes per row) and on ragged shapes, with error relative to each
+   row's sum of |a| |v| (f32 1e-5, f64 1e-12), device ms with the L2 warm
+   and cold, the plain version's and cuSPARSE's times, their ratio and the
+   bound; K3 on each f64 operator at 4, 8, 16 and 32 lanes per row, one line
+   each; and a non-finite v on each path's f64 operators, whose NaN
+   positions must equal the plain version's;
 9. the three families at a small size on the card against the CPU in f64
    with a polish (same formats and statuses, iterations within 5%, x within
    1e-6 of ||x||), and the derivative API on the card against the CPU on
@@ -1434,15 +1438,57 @@ def matvec_row(card, label, name, kern, plain, abs_plain, csr, v, nbytes, flops,
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by='operations' if t_ops > t_bytes else 'bytes',
                padded_bound_ms=padded_bytes / mem_peak * 1e3)
-    row.update(bound_share=row['bound_ms'] / ms, bound_share_cold_l2=row['bound_ms'] / cold)
+    row.update(bound_share=row['bound_ms'] / ms, bound_share_cold_l2=row['bound_ms'] / cold,
+               ms_over_library=ms / row['library_ms'])
     print(f'{name} vs plain:', json.dumps(row), flush=True)
+    return row
+
+
+def ell_touched_bytes(lens, K, item, gran):
+    """Bytes of the ``gran``-byte units (64: memory bursts; 32: L2 sectors)
+    that hold the stored entries of ELL rows of ``lens`` entries at a stride
+    of K slots: each row's data (``item`` bytes a slot) and int32 columns,
+    counted per array and per row.  A padded row's entries share their units
+    with pads, so this is more than the entries' own bytes whenever K
+    exceeds the row."""
+    r = torch.arange(lens.numel(), device=lens.device, dtype=torch.int64)
+    n_slots = lens.long()
+    total = 0
+    for size in (item, 4):
+        start = r * K * size
+        end = start + n_slots * size
+        total += int(torch.where(n_slots > 0, (end - 1) // gran - start // gran + 1, 0).sum())
+    return total * gran
+
+
+def nonfinite_row(name, label, kern, plain, v, idx, val):
+    """One kernel call with ``v[idx] = val`` against its plain version: the
+    NaN positions must be equal (the kernel skips pads and sets the rows the
+    plain version's pads would make NaN)."""
+    w = v.clone()
+    w[idx] = val
+    got, want = kern(w), plain(w)
+    torch.cuda.synchronize()
+    row = dict(case=label, dtype=str(v.dtype).replace('torch.', ''), index=idx, value=str(val),
+               nan_rows=int(want.isnan().sum()), rows=int(want.numel()),
+               nan_positions_equal=bool(torch.equal(got.isnan(), want.isnan())))
+    print(f'{name} non-finite v:', json.dumps(row), flush=True)
+    if not row['nan_positions_equal']:
+        raise AssertionError(f'{name} {label}: NaN positions differ from the plain version '
+                             f'for v[{idx}] = {val}')
     return row
 
 
 def ell_rows(card, o, flush):
     """K3 on the ELL path's own operators (P, A and A', scaled, f64 and
-    f32) and on ragged arrays: K = 3 and 13 at m != n, K = 40 (over a
-    warp), with pads at column 0."""
+    f32), with the operator's own counts and lanes per row, and on ragged
+    arrays: K = 3 and 13 at m != n, K = 40 (over a warp), with pads at
+    column 0; then each f64 operator at G = 4, 8, 16 and 32 lanes per row
+    (one line each), and a non-finite v[0] on each.  Beside the bound over
+    the entries each row reports the 64-byte bursts and 32-byte sectors
+    those entries lie in (``ell_touched_bytes``), one 32-byte sector per
+    gather of v, and ``burst_bound_ms``: the bursts, lens, v and y over the
+    card's memory rate."""
     from osqp_tpu_torch.ops import ell_matvec as em
 
     d = o._solver._data
@@ -1452,33 +1498,56 @@ def ell_rows(card, o, flush):
     for dtype in (torch.float64, torch.float32):
         for label, M in cases:
             M = M.astype(dtype)
-            arrays.append((label, M.data, M.cols, M.shape[1]))
+            arrays.append((label, M.data, M.cols, M.shape[1], M.lens, M.log2g))
     for m, n, K in ((200_003, 150_001, 3), (150_001, 200_003, 13), (100_003, 90_001, 40)):
         cols = rng.integers(1, n, (m, K)).astype(np.int32)
         data = rng.standard_normal((m, K))
         pad = rng.random((m, K)) < 0.2
         data[pad], cols[pad] = 0.0, 0
         for dtype in (torch.float64, torch.float32):
-            arrays.append((f'ragged K={K}', torch.as_tensor(data, dtype=dtype, device=DEV),
-                           torch.as_tensor(cols, device=DEV), n))
+            data_d = torch.as_tensor(data, dtype=dtype, device=DEV)
+            cols_d = torch.as_tensor(cols, device=DEV)
+            lens = em.row_lens(data_d, cols_d)
+            arrays.append((f'ragged K={K}', data_d, cols_d, n, lens, em.lanes_log2(lens)))
     rows = []
-    for label, data, cols, n in arrays:
+    for label, data, cols, n, lens, log2g in arrays:
         m, K = data.shape
         nnz = int((data != 0).sum())  # pads are zero data at column 0
         v = torch.as_tensor(rng.standard_normal(n), dtype=data.dtype, device=DEV)
         item = data.element_size()
+        bursts = ell_touched_bytes(lens, K, item, 64)
         rows.append(matvec_row(
-            card, label, 'ell_matvec', lambda: em.ell_matvec(data, cols, v),
+            card, label, 'ell_matvec', lambda: em.ell_matvec(data, cols, v, lens, log2g),
             lambda: em.ell_matvec_plain(data, cols, v),
             lambda: em.ell_matvec_plain(data.abs(), cols, v.abs()), _ell_csr(data, cols, n), v,
             nnz * (item + 4) + (m + n) * item, 2 * nnz, m * K * (item + 4) + (m + n) * item,
-            flush, m=m, n=n, K=K, nnz=nnz, lanes_per_row=1 << em.group_log2(K)))
+            flush, m=m, n=n, K=K, nnz=nnz, lens_mean=float(lens.double().mean()),
+            lanes_per_row=1 << log2g, burst_mb=bursts / 1e6,
+            sector_mb=ell_touched_bytes(lens, K, item, 32) / 1e6, gather_mb=32 * nnz / 1e6,
+            burst_bound_ms=(bursts + m * 4 + (m + n) * item) / peaks(card)[2] * 1e3))
+    for label, M in cases:
+        v = torch.as_tensor(rng.standard_normal(M.shape[1]), device=DEV)
+        lib = next(r['library_ms'] for r in rows
+                   if r['case'] == label and r['dtype'] == 'float64')
+        for log2g in range(2, 6):
+            width = dict(case=label, dtype='float64', K=M.data.shape[1],
+                         lens_mean=float(M.lens.double().mean()), lanes_per_row=1 << log2g,
+                         rule_lanes_per_row=1 << M.log2g,
+                         ms=event_ms(lambda: em.ell_matvec(M.data, M.cols, v, M.lens, log2g), 50),
+                         library_ms=lib)
+            print('ell_matvec width:', json.dumps(width), flush=True)
+        for idx, val in ((0, float('inf')), (0, float('nan'))):
+            nonfinite_row('ell_matvec', label,
+                          lambda w: em.ell_matvec(M.data, M.cols, w, M.lens, M.log2g),
+                          lambda w: em.ell_matvec_plain(M.data, M.cols, w), v, idx, val)
     return rows
 
 
 def bsr_rows(card, o, flush):
-    """K4 on the BSR path's own A and A' (scaled, f64 and f32) and on a
-    ragged 1000 x 1000 matrix (multiples of neither 8 nor 128)."""
+    """K4 on the BSR path's own A and A' (scaled, f64 and f32) with the
+    operator's own block counts, and on a ragged 1000 x 1000 matrix
+    (multiples of neither 8 nor 128); then a NaN at v[5] (block-column 0,
+    which padding blocks multiply) and at v[200] on the f64 A."""
     import scipy.sparse as sparse
 
     from osqp_tpu_torch.ops import bsr_matvec as bm
@@ -1491,21 +1560,27 @@ def bsr_rows(card, o, flush):
     for dtype in (torch.float64, torch.float32):
         for label, M in (('A @ v', A.astype(dtype)), ("A' @ y", A.T.astype(dtype)),
                          ('ragged 1000 x 1000', spmv.bsr_from_scipy(S, dtype, DEV))):
-            arrays.append((label, M.blocks, M.bcols, M.shape))
+            arrays.append((label, M.blocks, M.bcols, M.nblk, M.shape))
     rows = []
-    for label, blocks, bcols, (m, n) in arrays:
+    for label, blocks, bcols, nblk, (m, n) in arrays:
         nbr, Kb = bcols.shape
         nb = int(blocks.flatten(2).ne(0).any(-1).sum())  # pads are zero blocks
         v = torch.as_tensor(rng.standard_normal(n), dtype=blocks.dtype, device=DEV)
         item = blocks.element_size()
         rows.append(matvec_row(
-            card, label, 'bsr_matvec', lambda: bm.bsr_matvec(blocks, bcols, v, m),
+            card, label, 'bsr_matvec', lambda: bm.bsr_matvec(blocks, bcols, v, m, nblk),
             lambda: bm.bsr_matvec_plain(blocks, bcols, v, m),
             lambda: bm.bsr_matvec_plain(blocks.abs(), bcols, v.abs(), m),
             _bsr_csr(blocks, bcols, m, n), v,
             nb * (1024 * item + 4) + (m + n) * item, 2 * nb * 1024,
             nbr * Kb * (1024 * item + 4) + (m + n) * item, flush,
-            m=m, n=n, nbr=nbr, Kb=Kb, blocks=nb))
+            m=m, n=n, nbr=nbr, Kb=Kb, blocks=nb, nblk_mean=float(nblk.double().mean())))
+    v = torch.as_tensor(rng.standard_normal(A.shape[1]), device=DEV)
+    for idx in (5, 200):
+        nonfinite_row('bsr_matvec', 'A @ v',
+                      lambda w: bm.bsr_matvec(A.blocks, A.bcols, w, A.shape[0], A.nblk),
+                      lambda w: bm.bsr_matvec_plain(A.blocks, A.bcols, w, A.shape[0]), v, idx,
+                      float('nan'))
     return rows
 
 
@@ -1547,8 +1622,10 @@ def ladder_rows(o, family):
         row['ell_K'] = K
         if not isinstance(M, spmv.EllMatrix) and m * K * 12 <= 8e9:
             data, cols = _csr_ell(csr)
-            row['ell_ms'] = event_ms(lambda: em.ell_matvec(data, cols, v), 20)
-            del data, cols
+            lens = em.row_lens(data, cols)
+            log2g = em.lanes_log2(lens)
+            row['ell_ms'] = event_ms(lambda: em.ell_matvec(data, cols, v, lens, log2g), 20)
+            del data, cols, lens
         print('format ladder:', json.dumps(row), flush=True)
         out.append(row)
         del csr
@@ -1857,6 +1934,8 @@ def main():
             cold_l2_ms=head['cold_l2_ms'], plain_ms=head['plain_ms'],
             bound_ms=head['bound_ms'], bound_by=head['bound_by'],
             padded_bound_ms=head['padded_bound_ms'], library_ms=head['library_ms'],
+            ms_over_library=head['ms_over_library'],
+            **{k: head[k] for k in ('lens_mean', 'lanes_per_row', 'nblk_mean') if k in head},
             shape=f"{head['case']} m={head['m']} n={head['n']} {head['dtype']} ({path} path)"))
     print(card_line)
     print(json.dumps({'kernels': kernels}))

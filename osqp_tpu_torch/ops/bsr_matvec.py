@@ -13,6 +13,11 @@ for the rows below ``out_rows``, with v read as zero past its end.  The
 block shape (8, 128) is the JAX package's, which its format ladder's costs
 assume.
 
+The kernel skips padding blocks: it reads the first ``nblk[b]`` blocks of
+block-row b (``block_counts``, computed once per operator) and sets a
+block-row with padding to NaN where the plain version's padding blocks times
+``v[0 : 128]`` are NaN.
+
 ``bsr_matvec`` launches the kernel in ``csrc/bsr_matvec.cu`` for CUDA tensors
 (and raises if it cannot) and runs ``bsr_matvec_plain`` for CPU tensors.
 ``launches`` counts kernel launches only.
@@ -42,6 +47,19 @@ def bsr_matvec_plain(blocks, bcols, v, out_rows):
     return torch.einsum('bkrc,bkc->br', blocks, vg).reshape(-1)[:out_rows]
 
 
+def block_counts(blocks, bcols):
+    """``nblk[b]`` = 1 + the last slot k of block-row b where ``bcols[b, k]
+    != 0`` or block ``(b, k)`` holds a non-zero (0 for a block-row of padding
+    only), an ``(nbr,)`` int32 tensor on the arrays' device: every slot at or
+    past it is a padding block (a zero block at block-column 0)."""
+    nbr, Kb = bcols.shape
+    if nbr == 0 or Kb == 0:
+        return torch.zeros((nbr,), dtype=torch.int32, device=bcols.device)
+    used = (bcols != 0) | blocks.flatten(2).ne(0).any(-1)
+    slot = torch.arange(1, Kb + 1, dtype=torch.int32, device=bcols.device)
+    return (used * slot).amax(1)
+
+
 def _lib_fn(dtype):
     from ._build import load_library
 
@@ -49,20 +67,23 @@ def _lib_fn(dtype):
     fn = lib.bsr_matvec_f32 if dtype == torch.float32 else lib.bsr_matvec_f64
     if fn.argtypes is None:
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, vp, ll, ctypes.c_int, ll, ll, ctypes.c_int, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, ll, ctypes.c_int, ll, ll, ctypes.c_int, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def bsr_matvec(blocks, bcols, v, out_rows):
+def bsr_matvec(blocks, bcols, v, out_rows, nblk):
     """``y = S @ v`` for the block-ELL matrix ``(blocks, bcols)``, cut to
     ``out_rows`` rows.
 
     ``blocks``: ``(nbr, Kb, 8, 128)``; ``bcols``: ``(nbr, Kb)`` int32 on the
     same device, each a block-column of ``v`` (the kernel does not check);
-    ``v``: ``(n,)``, read as zero past ``n``.  CUDA tensors: one launch of
-    the Hopper kernel on the current stream.  CPU tensors: the plain version.
-    Returns a new ``(out_rows,)`` tensor."""
+    ``v``: ``(n,)``, read as zero past ``n``; ``nblk``:
+    ``block_counts(blocks, bcols)`` (or any ``(nbr,)`` int32 counts in
+    ``[0, Kb]`` past which every slot is a padding block; the kernel does
+    not check).  CUDA tensors: one launch of the Hopper kernel on the
+    current stream.  CPU tensors: the plain version, which reads every
+    block and ignores ``nblk``.  Returns a new ``(out_rows,)`` tensor."""
     if v.device.type == 'cpu' and blocks.device.type == 'cpu':
         return bsr_matvec_plain(blocks, bcols, v, out_rows)
     if v.device.type != 'cuda':
@@ -80,8 +101,12 @@ def bsr_matvec(blocks, bcols, v, out_rows):
     if bcols.dtype != torch.int32 or tuple(bcols.shape) != (nbr, Kb) \
             or bcols.device != v.device:
         raise ValueError(f'bsr_matvec: bcols must be a ({nbr}, {Kb}) int32 tensor on {v.device}')
-    if not (blocks.is_contiguous() and bcols.is_contiguous() and v.is_contiguous()):
-        raise ValueError('bsr_matvec: blocks, bcols and v must be contiguous')
+    if nblk.dtype != torch.int32 or tuple(nblk.shape) != (nbr,) or nblk.device != v.device:
+        raise ValueError(f'bsr_matvec: nblk must be a ({nbr},) int32 tensor on {v.device}, got '
+                         f'{nblk.dtype} {tuple(nblk.shape)} on {nblk.device}')
+    if not (blocks.is_contiguous() and bcols.is_contiguous() and nblk.is_contiguous()
+            and v.is_contiguous()):
+        raise ValueError('bsr_matvec: blocks, bcols, nblk and v must be contiguous')
     if blocks.data_ptr() % 16:
         raise ValueError('bsr_matvec: blocks must be 16-byte aligned')
     out_rows = int(out_rows)
@@ -94,8 +119,9 @@ def bsr_matvec(blocks, bcols, v, out_rows):
     stream = torch.cuda.current_stream(v.device).cuda_stream
     global launches
     with torch.cuda.device(v.device):
-        err = _lib_fn(dtype)(blocks.data_ptr(), bcols.data_ptr(), v.data_ptr(), y.data_ptr(),
-                             nbr, Kb, n, out_rows, int(v.data_ptr() % 16 == 0), stream)
+        err = _lib_fn(dtype)(blocks.data_ptr(), bcols.data_ptr(), nblk.data_ptr(), v.data_ptr(),
+                             y.data_ptr(), nbr, Kb, n, out_rows, int(v.data_ptr() % 16 == 0),
+                             stream)
     launches += 1
     if err != 0:
         raise RuntimeError(f'bsr_matvec: CUDA kernel launch failed with error {err}')

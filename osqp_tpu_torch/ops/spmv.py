@@ -36,9 +36,9 @@ import scipy.sparse as sp
 import torch
 
 from ..settings import np_dtype
-from .bsr_matvec import C as _BSR_C, R as _BSR_R, bsr_matvec
+from .bsr_matvec import C as _BSR_C, R as _BSR_R, block_counts, bsr_matvec
 from .dia_matvec import dia_matvec
-from .ell_matvec import ell_matvec
+from .ell_matvec import ell_matvec, lanes_log2, row_lens
 
 DENSE_BUDGET_BYTES = 2_000_000_000
 FORMATS = ('auto', 'dia', 'bsr', 'dense', 'ell', 'bcoo')
@@ -127,14 +127,22 @@ class EllMatrix:
 
     ``data[i, k]`` and ``cols[i, k]`` hold up to K entries of row i, padded
     with zero data at column 0; ``data_t`` and ``cols_t`` hold the
-    transpose's, so both orientations are a row gather."""
+    transpose's, so both orientations are a row gather.  ``lens`` (``(m,)``
+    int32) counts the slots of each row before its trailing pads and
+    ``log2g`` is the kernel's lanes per row, both computed here unless given
+    (``.T`` swaps them with the transpose's, ``astype`` keeps them)."""
 
-    def __init__(self, data, cols, data_t, cols_t, shape):
+    def __init__(self, data, cols, data_t, cols_t, shape, lens=None, lens_t=None, log2g=None,
+                 log2g_t=None):
         self.data = data          # (m, K)
         self.cols = cols          # (m, K) int32
         self.data_t = data_t      # (n, Kt)
         self.cols_t = cols_t      # (n, Kt) int32
         self.shape = tuple(shape)
+        self.lens = row_lens(data, cols) if lens is None else lens            # (m,) int32
+        self.lens_t = row_lens(data_t, cols_t) if lens_t is None else lens_t  # (n,) int32
+        self.log2g = lanes_log2(self.lens) if log2g is None else log2g
+        self.log2g_t = lanes_log2(self.lens_t) if log2g_t is None else log2g_t
 
     @property
     def dtype(self):
@@ -147,16 +155,17 @@ class EllMatrix:
     @property
     def T(self):
         return EllMatrix(self.data_t, self.cols_t, self.data, self.cols,
-                         (self.shape[1], self.shape[0]))
+                         (self.shape[1], self.shape[0]), self.lens_t, self.lens, self.log2g_t,
+                         self.log2g)
 
     def astype(self, dtype):
         return EllMatrix(self.data.to(dtype), self.cols, self.data_t.to(dtype), self.cols_t,
-                         self.shape)
+                         self.shape, self.lens, self.lens_t, self.log2g, self.log2g_t)
 
     def __matmul__(self, v):
         if v.dim() != 1:
             raise TypeError('EllMatrix only supports matrix-vector products')
-        return ell_matvec(self.data, self.cols, v)
+        return ell_matvec(self.data, self.cols, v, self.lens, self.log2g)
 
     def diag(self):
         """Main diagonal (square matrices)."""
@@ -164,8 +173,10 @@ class EllMatrix:
         return torch.where(self.cols == rows, self.data, 0.0).sum(1)
 
     def gram_diag(self, rho):
-        """diag(S' diag(rho) S): the transpose's squared data times rho."""
-        return ell_matvec(self.data_t * self.data_t, self.cols_t, rho)
+        """diag(S' diag(rho) S): the transpose's squared data times rho (a
+        squared pad is a pad, so the transpose's counts hold)."""
+        return ell_matvec(self.data_t * self.data_t, self.cols_t, rho, self.lens_t,
+                          self.log2g_t)
 
     def todense(self):
         m, n = self.shape
@@ -215,15 +226,21 @@ class BsrMatrix:
     ``blocks[i, k]`` is the k-th stored block of block-row i and
     ``bcols[i, k]`` its block-column; block-rows with fewer blocks are padded
     with zero blocks at block-column 0.  The transpose's blocks are stored
-    too.  The main diagonal ``dvec`` is built on the host."""
+    too.  The main diagonal ``dvec`` is built on the host.  ``nblk``
+    (``(nbr,)`` int32) counts the slots of each block-row before its
+    trailing padding blocks, computed here unless given (``.T`` swaps it
+    with the transpose's ``nblk_t``, ``astype`` keeps both)."""
 
-    def __init__(self, blocks, bcols, blocks_t, bcols_t, dvec, shape):
+    def __init__(self, blocks, bcols, blocks_t, bcols_t, dvec, shape, nblk=None,
+                 nblk_t=None):
         self.blocks = blocks      # (nbr, Kb, 8, 128)
         self.bcols = bcols        # (nbr, Kb) int32
         self.blocks_t = blocks_t  # (nbc, Kt, 8, 128) for S.T
         self.bcols_t = bcols_t
         self.dvec = dvec          # (min(m, n),)
         self.shape = tuple(shape)
+        self.nblk = block_counts(blocks, bcols) if nblk is None else nblk                # (nbr,)
+        self.nblk_t = block_counts(blocks_t, bcols_t) if nblk_t is None else nblk_t    # (nbc,)
 
     @property
     def dtype(self):
@@ -236,24 +253,26 @@ class BsrMatrix:
     @property
     def T(self):
         return BsrMatrix(self.blocks_t, self.bcols_t, self.blocks, self.bcols, self.dvec,
-                         (self.shape[1], self.shape[0]))
+                         (self.shape[1], self.shape[0]), self.nblk_t, self.nblk)
 
     def astype(self, dtype):
         return BsrMatrix(self.blocks.to(dtype), self.bcols, self.blocks_t.to(dtype),
-                         self.bcols_t, self.dvec.to(dtype), self.shape)
+                         self.bcols_t, self.dvec.to(dtype), self.shape, self.nblk, self.nblk_t)
 
     def __matmul__(self, v):
         if v.dim() != 1:
             raise TypeError('BsrMatrix only supports matrix-vector products')
-        return bsr_matvec(self.blocks, self.bcols, v, self.shape[0])
+        return bsr_matvec(self.blocks, self.bcols, v, self.shape[0], self.nblk)
 
     def diag(self):
         """Main diagonal, zero past min(m, n) (as the JAX package pads it)."""
         return _pad_diag(self.dvec, self.shape[0])
 
     def gram_diag(self, rho):
-        """diag(S' diag(rho) S): the squared transpose blocks times rho."""
-        return bsr_matvec(self.blocks_t * self.blocks_t, self.bcols_t, rho, self.shape[1])
+        """diag(S' diag(rho) S): the squared transpose blocks times rho (a
+        squared padding block is one, so the transpose's counts hold)."""
+        return bsr_matvec(self.blocks_t * self.blocks_t, self.bcols_t, rho, self.shape[1],
+                          self.nblk_t)
 
     def todense(self):
         nbr, Kb, R, C = self.blocks.shape

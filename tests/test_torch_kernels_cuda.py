@@ -280,7 +280,9 @@ def test_sparse_osqp_on_cuda_matches_cpu_f64():
 
 
 def _rel_err(got, want, scale):
-    """max |got - want| relative to each row's sum of |a| |v|."""
+    """max |got - want| relative to each row's sum of |a| |v| (0 for no rows)."""
+    if got.numel() == 0:
+        return 0.0
     return float(((got - want).abs() / scale.clamp(min=torch.finfo(scale.dtype).tiny)).max())
 
 
@@ -289,10 +291,10 @@ def _rel_err(got, want, scale):
                                      (1000, 1000, 1)])
 def test_ell_matvec_matches_plain_on_cuda(m, n, K):
     """K3 against its plain version on the card at m != n, K = 3, 13, 40
-    (over one warp) and 1, with pads at column 0, both dtypes: each row
-    within 1e-5 (f32) or 1e-12 (f64) of its sum of |a| |v| (the kernel sums
-    in another order, with FMA); a non-finite v[0] reaches the padded rows
-    as in the plain version."""
+    (over one warp) and 1, with pads at column 0, both dtypes, at the lanes
+    per row the operator would take: each row within 1e-5 (f32) or 1e-12
+    (f64) of its sum of |a| |v| (the kernel sums in another order, with FMA);
+    a non-finite v[0] reaches the padded rows as in the plain version."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device; the kernel has no CPU mode')
     rng = np.random.default_rng(K)
@@ -303,18 +305,81 @@ def test_ell_matvec_matches_plain_on_cuda(m, n, K):
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         data = torch.as_tensor(data_h, dtype=dtype, device='cuda')
         cols = torch.as_tensor(cols_h, device='cuda')
+        lens = tem.row_lens(data, cols)
+        log2g = tem.lanes_log2(lens)
         v = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device='cuda')
         before = tem.launches
-        got = tem.ell_matvec(data, cols, v)
+        got = tem.ell_matvec(data, cols, v, lens, log2g)
         torch.cuda.synchronize()
         assert tem.launches == before + 1
         want = tem.ell_matvec_plain(data, cols, v)
         assert _rel_err(got, want, tem.ell_matvec_plain(data.abs(), cols, v.abs())) <= tol
         v[0] = float('inf')
-        got = tem.ell_matvec(data, cols, v)
+        got = tem.ell_matvec(data, cols, v, lens, log2g)
         assert torch.equal(got.isnan(), tem.ell_matvec_plain(data, cols, v).isnan())
     with pytest.raises(ValueError, match='int32'):
-        tem.ell_matvec(data, cols.long(), v)
+        tem.ell_matvec(data, cols.long(), v, lens, log2g)
+    with pytest.raises(ValueError, match='lens'):
+        tem.ell_matvec(data, cols, v, lens.long(), log2g)
+    with pytest.raises(ValueError, match='lens'):
+        tem.ell_matvec(data, cols, v, lens[1:], log2g)
+    with pytest.raises(ValueError, match='lens'):
+        tem.ell_matvec(data, cols, v, lens.cpu(), log2g)
+
+
+def _ell_pads(m, n, K, seed):
+    """ELL arrays with rows of every length 0..K (row 0 full, every 7th row
+    pads only), trailing pads, and interior pads (zero data at column 0)
+    before the last entry; with each row's count of slots before its
+    trailing pads."""
+    rng = np.random.default_rng(seed)
+    want = rng.integers(0, K + 1, m)
+    want[0], want[7::7] = K, 0
+    slot = np.arange(K)[None, :]
+    keep = slot < want[:, None]
+    data = np.where(keep, rng.standard_normal((m, K)), 0.0)
+    cols = np.where(keep, rng.integers(1, n, (m, K)), 0).astype(np.int32)
+    inner = keep & (slot < want[:, None] - 1) & (rng.random((m, K)) < 0.15)
+    data[inner], cols[inner] = 0.0, 0
+    return data, cols, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('log2g', [2, 3, 4, 5])
+def test_ell_matvec_pads_and_widths_on_cuda(log2g):
+    """K3 at each width G = 4, 8, 16 and 32 lanes per row on rows of every
+    length up to K = 40 (trailing pads, interior pads, rows of pads only, a
+    row at full K) with m = 1001 a multiple of no block's rows, both
+    dtypes: each row within 1e-5 (f32) or 1e-12 (f64) of its sum of |a| |v|
+    (another summation order, with FMA), and NaN exactly where the plain
+    version has it for v[0] = inf, v[0] = nan and v[9] = nan."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    m, n, K = 1001, 700, 40
+    data_h, cols_h, want_lens = _ell_pads(m, n, K, seed=log2g)
+    rng = np.random.default_rng(100 + log2g)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        data = torch.as_tensor(data_h, dtype=dtype, device='cuda')
+        cols = torch.as_tensor(cols_h, device='cuda')
+        lens = tem.row_lens(data, cols)
+        np.testing.assert_array_equal(lens.cpu().numpy(), want_lens)
+        v = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device='cuda')
+        before = tem.launches
+        got = tem.ell_matvec(data, cols, v, lens, log2g)
+        torch.cuda.synchronize()
+        assert tem.launches == before + 1
+        want = tem.ell_matvec_plain(data, cols, v)
+        assert _rel_err(got, want, tem.ell_matvec_plain(data.abs(), cols, v.abs())) <= tol
+        for i, bad in ((0, float('inf')), (0, float('nan')), (9, float('nan'))):
+            w = v.clone()
+            w[i] = bad
+            got = tem.ell_matvec(data, cols, w, lens, log2g)
+            want = tem.ell_matvec_plain(data, cols, w)
+            assert torch.equal(got.isnan(), want.isnan())
+            assert bool(got.isnan().any())
+            fin = ~want.isnan()
+            assert _rel_err(got[fin], want[fin],
+                            tem.ell_matvec_plain(data.abs(), cols, v.abs())[fin]) <= tol
 
 
 @pytest.mark.cuda
@@ -337,15 +402,69 @@ def test_bsr_matvec_matches_plain_on_cuda(m, n, density):
         buf = torch.as_tensor(np.random.default_rng(1).standard_normal(n + 1), dtype=dtype,
                               device='cuda')
         for v in (buf[:n], buf[1:]):  # 16-byte aligned, then not
-            for blocks, bcols, x, rows in ((M.blocks, M.bcols, v, m),
-                                           (M.blocks_t, M.bcols_t, v.new_ones(m), n)):
+            for blocks, bcols, nblk, x, rows in ((M.blocks, M.bcols, M.nblk, v, m),
+                                                 (M.blocks_t, M.bcols_t, M.nblk_t,
+                                                  v.new_ones(m), n)):
                 x = x.contiguous()
                 before = tbm.launches
-                got = tbm.bsr_matvec(blocks, bcols, x, rows)
+                got = tbm.bsr_matvec(blocks, bcols, x, rows, nblk)
                 torch.cuda.synchronize()
                 assert tbm.launches == before + 1 and got.shape == (rows,)
                 want = tbm.bsr_matvec_plain(blocks, bcols, x, rows)
                 scale = tbm.bsr_matvec_plain(blocks.abs(), bcols, x.abs(), rows)
                 assert _rel_err(got, want, scale) <= tol
     with pytest.raises(ValueError, match='int32'):
-        tbm.bsr_matvec(M.blocks, M.bcols.long(), v.contiguous(), m)
+        tbm.bsr_matvec(M.blocks, M.bcols.long(), v.contiguous(), m, M.nblk)
+    with pytest.raises(ValueError, match='nblk'):
+        tbm.bsr_matvec(M.blocks, M.bcols, v.contiguous(), m, M.nblk.long())
+    with pytest.raises(ValueError, match='nblk'):
+        tbm.bsr_matvec(M.blocks, M.bcols, v.contiguous(), m, M.nblk[1:])
+    with pytest.raises(ValueError, match='nblk'):
+        tbm.bsr_matvec(M.blocks, M.bcols, v.contiguous(), m, M.nblk.cpu())
+
+
+@pytest.mark.cuda
+def test_bsr_matvec_padding_and_nan_on_cuda():
+    """K4 on block-rows that hold 0 to Kb = 6 stored blocks (interior
+    block-column 0 blocks and zero blocks included), m = 8 nbr - 3 and
+    n = 1000 (a partial last block-column), both dtypes, v 16-byte aligned
+    and not: each row within 1e-5 (f32) or 1e-12 (f64) of its sum of |a| |v|,
+    and NaN exactly where the plain version has it for a NaN at v[5], at
+    v[127] (both in block-column 0, which every padding block multiplies)
+    and at v[200] (block-column 1: only the block-rows that store it)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    rng = np.random.default_rng(8)
+    Kb, nbr, n = 6, 35, 1000
+    m = 8 * nbr - 3
+    counts = np.arange(nbr) % (Kb + 1)
+    blocks_h = np.zeros((nbr, Kb, 8, 128))
+    bcols_h = np.zeros((nbr, Kb), np.int32)
+    for b, c in enumerate(counts):
+        bcols_h[b, :c] = rng.choice(8, c, replace=False)
+        blocks_h[b, :c] = rng.standard_normal((c, 8, 128)) * (rng.random((c, 8, 128)) < 0.3)
+    blocks_h[3, 0] = 0.0  # a zero block before the last stored one
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        blocks = torch.as_tensor(blocks_h, dtype=dtype, device='cuda')
+        bcols = torch.as_tensor(bcols_h, device='cuda')
+        nblk = tbm.block_counts(blocks, bcols)
+        np.testing.assert_array_equal(nblk.cpu().numpy(), counts)
+        buf = torch.as_tensor(rng.standard_normal(n + 1), dtype=dtype, device='cuda')
+        for v, aligned in ((buf[:n], True), (buf[1:], False)):
+            assert (v.data_ptr() % 16 == 0) == aligned
+            before = tbm.launches
+            got = tbm.bsr_matvec(blocks, bcols, v, m, nblk)
+            torch.cuda.synchronize()
+            assert tbm.launches == before + 1
+            want = tbm.bsr_matvec_plain(blocks, bcols, v, m)
+            scale = tbm.bsr_matvec_plain(blocks.abs(), bcols, v.abs(), m)
+            assert _rel_err(got, want, scale) <= tol
+            for i in (5, 127, 200):
+                w = v.clone()
+                w[i] = float('nan')
+                got = tbm.bsr_matvec(blocks, bcols, w, m, nblk)
+                want = tbm.bsr_matvec_plain(blocks, bcols, w, m)
+                assert torch.equal(got.isnan(), want.isnan())
+                assert bool(got.isnan().any()) and not bool(got.isnan().all())
+                fin = ~want.isnan()
+                assert _rel_err(got[fin], want[fin], scale[fin]) <= tol

@@ -178,8 +178,9 @@ def test_operator_matches_jax(fmt, name):
 
 def test_ell_arrays_match_jax():
     """Packing: widths, pads (zero data at column 0) and the transpose's
-    arrays equal the JAX package's; ``group_log2`` sizes the kernel's lane
-    group to the width."""
+    arrays equal the JAX package's; ``lanes_log2`` sizes the kernel's lane
+    group to the power of two nearest the mean row length (log scale), from
+    one lane to 32."""
     S = _ragged_rows(70, 45, seed=4)
     J = jspmv.ell_from_scipy(S, np.float64)
     T = tspmv.ell_from_scipy(S, torch.float64)
@@ -187,7 +188,12 @@ def test_ell_arrays_match_jax():
                  (T.cols_t, J.cols_t)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert T.cols.dtype == torch.int32
-    assert [tem.group_log2(K) for K in (1, 2, 3, 4, 13, 32, 33, 40)] == [0, 1, 2, 2, 4, 5, 5, 5]
+    means = (0.5, 1.0, 1.4, 1.5, 2.0, 5.6, 5.7, 9.0, 11.3, 11.4, 32.0, 40.0)
+    assert [tem.lanes_log2(torch.tensor([x])) for x in means] == [0, 0, 0, 1, 1, 2, 3, 3, 3, 4,
+                                                                  5, 5]
+    assert tem.lanes_log2(torch.zeros(0, dtype=torch.int32)) == 0
+    assert tem.lanes_log2(torch.zeros(7, dtype=torch.int32)) == 0
+    assert T.log2g == tem.lanes_log2(T.lens) and T.log2g_t == tem.lanes_log2(T.lens_t)
 
 
 def test_bsr_arrays_match_jax():
@@ -220,7 +226,9 @@ def test_ell_plain_matches_jnp(m, n, K, seed):
     v = rng.standard_normal(n)
     want = np.asarray(jnp.sum(jnp.asarray(data) * jnp.asarray(v)[cols], axis=1))
     before = tem.launches
-    got = tem.ell_matvec(torch.as_tensor(data), torch.as_tensor(cols), torch.as_tensor(v))
+    data_t, cols_t = torch.as_tensor(data), torch.as_tensor(cols)
+    lens = tem.row_lens(data_t, cols_t)
+    got = tem.ell_matvec(data_t, cols_t, torch.as_tensor(v), lens, tem.lanes_log2(lens))
     assert tem.launches == before
     _close(got, want)
     v[0] = np.inf
@@ -241,7 +249,9 @@ def test_bsr_plain_matches_jax(m, n, seed):
     v = np.random.default_rng(seed).standard_normal(n)
     want = np.asarray(jspmv._bsr_matvec(blocks, bcols, v, m, n))
     before = tbm.launches
-    got = tbm.bsr_matvec(torch.as_tensor(blocks), torch.as_tensor(bcols), torch.as_tensor(v), m)
+    blocks_t, bcols_t = torch.as_tensor(blocks), torch.as_tensor(bcols)
+    got = tbm.bsr_matvec(blocks_t, bcols_t, torch.as_tensor(v), m,
+                         tbm.block_counts(blocks_t, bcols_t))
     assert tbm.launches == before
     _close(got, want)
     np.testing.assert_allclose(got.numpy(), S @ v, rtol=TOL, atol=TOL)
@@ -254,11 +264,273 @@ def test_kernels_raise_on_meta_tensors():
     before = (tem.launches, tbm.launches)
     with pytest.raises(ValueError, match='unsupported device'):
         tem.ell_matvec(torch.ones((4, 2), **meta), torch.zeros((4, 2), dtype=torch.int32, **meta),
-                       torch.ones(4, **meta))
+                       torch.ones(4, **meta), torch.full((4,), 2, dtype=torch.int32, **meta), 1)
     with pytest.raises(ValueError, match='unsupported device'):
         tbm.bsr_matvec(torch.ones((1, 1, 8, 128), **meta),
-                       torch.zeros((1, 1), dtype=torch.int32, **meta), torch.ones(128, **meta), 8)
+                       torch.zeros((1, 1), dtype=torch.int32, **meta), torch.ones(128, **meta), 8,
+                       torch.ones((1,), dtype=torch.int32, **meta))
     assert (tem.launches, tbm.launches) == before
+
+
+# --- the counts past which every slot is padding ----------------------------
+
+def _explicit_zeros():
+    """45 x 300 with stored zeros (column 0 among them), empty rows and
+    columns, and rows of one entry.  A zero is stored only where its row and
+    its column hold a later non-zero and its (8, 128) block a non-zero, so
+    no orientation ends a row or block-row with it: there the packing could
+    not tell it from a pad."""
+    rng = np.random.default_rng(21)
+    m, n = 45, 300
+    rows, cols = [], []
+    for i in range(m):
+        if i % 9 == 4:
+            continue  # an empty row
+        c = np.sort(rng.choice(np.arange(1, n), rng.integers(1, 9), replace=False))
+        if i % 3 == 0:
+            c = np.concatenate([[0], c])  # column 0 first, then later entries
+        rows += [i] * c.size
+        cols += c.tolist()
+    rows, cols = np.array(rows), np.array(cols)
+    data = rng.standard_normal(rows.size)
+    later_in_row = np.r_[rows[1:] == rows[:-1], False]
+    last_row_of_col = np.zeros(n, np.int64) - 1
+    np.maximum.at(last_row_of_col, cols, rows)
+    later_in_col = rows < last_row_of_col[cols]
+    first_in_block = np.zeros(rows.size, bool)
+    first_in_block[np.unique((rows // 8) * 3 + cols // 128, return_index=True)[1]] = True
+    zero = later_in_row & later_in_col & ~first_in_block & (rng.random(rows.size) < 0.3)
+    data[zero] = 0.0
+    assert zero.sum() >= 10 and (zero & (cols == 0)).any()
+    return sp.csr_matrix((data, (rows, cols)), shape=(m, n))
+
+
+_COUNT_MATRICES = {
+    'ragged_rows': lambda: _ragged_rows(130, 130, seed=5),
+    'explicit_zeros': _explicit_zeros,
+    'partial_blocks': lambda: _random_sparse(317, 290, 0.03, seed=12),
+    'empty_block_row': _MATRICES['empty_block_row'],
+}
+
+
+def _stored_per_row(S):
+    R = sp.csr_matrix(S)
+    R.sum_duplicates()
+    return np.diff(R.indptr)
+
+
+def _stored_blocks_per_block_row(S, R=8, C=128):
+    Coo = sp.coo_matrix(S)
+    Coo.sum_duplicates()
+    nbr, nbc = -(-S.shape[0] // R), -(-S.shape[1] // C)
+    bid = np.unique((Coo.row // R).astype(np.int64) * nbc + Coo.col // C)
+    return np.bincount(bid // nbc, minlength=nbr)
+
+
+def _check_ell_counts(M, want, want_t):
+    for lens, data, cols, w in ((M.lens, M.data, M.cols, want), (M.lens_t, M.data_t, M.cols_t,
+                                                                   want_t)):
+        assert lens.dtype == torch.int32 and lens.device == data.device
+        np.testing.assert_array_equal(lens.numpy(), w)
+        past = torch.arange(data.shape[1])[None, :] >= lens[:, None]
+        assert not bool(data[past].any()) and not bool(cols[past].any())
+
+
+def _check_bsr_counts(M, want, want_t):
+    for nblk, blocks, bcols, w in ((M.nblk, M.blocks, M.bcols, want),
+                                   (M.nblk_t, M.blocks_t, M.bcols_t, want_t)):
+        assert nblk.dtype == torch.int32 and nblk.device == blocks.device
+        np.testing.assert_array_equal(nblk.numpy(), w)
+        past = torch.arange(bcols.shape[1])[None, :] >= nblk[:, None]
+        assert not bool(blocks[past].any()) and not bool(bcols[past].any())
+
+
+@pytest.mark.parametrize('name', list(_COUNT_MATRICES))
+@pytest.mark.parametrize('fmt', ['ell', 'bsr'])
+def test_counts_match_scipy(fmt, name):
+    """``lens``/``lens_t`` (ELL) and ``nblk``/``nblk_t`` (BSR) equal scipy's
+    stored entries per row and stored blocks per block-row, of the matrix
+    and of its transpose, on ragged shapes (m and n multiples of neither 8
+    nor 128), rows of pads only and stored zeros; every slot at or past a
+    count is padding.  ``.T`` swaps the counts and ``astype`` keeps them,
+    without computing them again."""
+    S = _COUNT_MATRICES[name]()
+    T = tspmv.from_scipy(S, torch.float64, fmt)
+    if fmt == 'ell':
+        check, want, want_t = _check_ell_counts, _stored_per_row(S), _stored_per_row(S.T)
+    else:
+        check = _check_bsr_counts
+        want, want_t = _stored_blocks_per_block_row(S), _stored_blocks_per_block_row(S.T)
+    check(T, want, want_t)
+    check(T.T, want_t, want)
+    check(T.astype(torch.float32), want, want_t)
+    swapped = (dict(lens='lens_t', lens_t='lens', log2g='log2g_t', log2g_t='log2g')
+               if fmt == 'ell' else dict(nblk='nblk_t', nblk_t='nblk'))
+    T32 = T.astype(torch.float32)
+    for k, k_t in swapped.items():
+        assert getattr(T32, k) is getattr(T, k)
+        assert getattr(T.T, k) is getattr(T, k_t)
+
+
+@pytest.mark.parametrize('fmt', ['ell', 'bsr'])
+def test_counts_from_jax_solver(fmt, monkeypatch):
+    """The counts of the operators that ``from_jax_solver`` builds from the
+    JAX solver's scaled ELL or BSR state equal the stored entries per row (or
+    blocks per block-row) of those operators' matrices, both orientations."""
+    monkeypatch.setenv('OSQP_TPU_SPARSE_FORMAT', fmt)
+    P, q, A, l, u = _clustered_qp(seed=6, nsb=2, n_pairs=1)
+    A = sp.vstack([A, _random_sparse(37, A.shape[1], 0.01, seed=4)]).tocsc()
+    l, u = np.concatenate([l, -np.ones(37)]), np.concatenate([u, np.ones(37)])
+    js = JaxSolver(sparse=True)
+    js.setup(P, q, A, l, u, linsys_solver=1, verbose=False)
+    data = from_jax_solver(_jax_state(js), 'cpu', torch.float64)[0]
+    for J, T in ((js._data.P, data.P), (js._data.A, data.A)):
+        S = sp.csr_matrix(np.asarray(J.todense()))  # the scaled QP holds no stored zeros
+        if fmt == 'ell':
+            _check_ell_counts(T, _stored_per_row(S), _stored_per_row(S.T))
+        else:
+            _check_bsr_counts(T, _stored_blocks_per_block_row(S),
+                              _stored_blocks_per_block_row(S.T))
+
+
+def _ell_family_rows(n, seed=0):
+    """The row-length profile of chip_smoke.py::ell_family at a small n: P =
+    S + S' + a diagonal with 4 random entries per row of S, A = I + R with 7
+    per row."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), 4)
+    cols = (rows + rng.integers(1, n, rows.size)) % n
+    S = sp.coo_matrix((rng.standard_normal(rows.size), (rows, cols)), shape=(n, n)).tocsr()
+    S = (S + S.T).tocsr()
+    P = (S + sp.diags(2 * np.asarray(abs(S).sum(axis=1)).ravel() + 1)).tocsc()
+    rows = np.repeat(np.arange(n), 7)
+    R = sp.coo_matrix((rng.standard_normal(rows.size), (rows, rng.integers(0, n, rows.size))),
+                      shape=(n, n))
+    return P, (sp.eye(n, format='csc') + R.tocsc()).tocsc()
+
+
+def test_lanes_rule_on_ell_family():
+    """On the ELL family's profile (about 9 entries per row of P, 8 per row
+    and per column of A, rows up to 2-3 times longer) the rule takes 8 lanes
+    per row for P, A and A', the width the card ran fastest (PERF.md §6),
+    though K, the longest row, asks 32 for P and A'."""
+    P, A = _ell_family_rows(4096)
+    Pm, Am = tspmv.ell_from_scipy(P, torch.float64), tspmv.ell_from_scipy(A, torch.float64)
+    assert Pm.data.shape[1] > 16 and Am.data_t.shape[1] > 16
+    assert 8.5 < float(Pm.lens.double().mean()) < 9.5
+    assert (Pm.log2g, Am.log2g, Am.log2g_t, Am.T.log2g) == (3, 3, 3, 3)
+
+
+def _ell_skip(data, cols, v, lens):
+    """The kernel's rule in torch: sum only the slots below ``lens[r]``;
+    NaN for a row with skipped pads when v[0] is not finite."""
+    K = data.shape[1]
+    keep = torch.arange(K)[None, :] < lens[:, None]
+    y = torch.where(keep, data * v[cols], 0.0).sum(1)
+    return torch.where((lens < K) & ~torch.isfinite(v[0]), float('nan'), y)
+
+
+def _bsr_skip(blocks, bcols, v, out_rows, nblk):
+    """The kernel's rule in torch: contract only the first ``nblk[b]`` blocks
+    of block-row b; NaN in all its rows for a block-row with skipped padding
+    when one of v[0 : min(128, n)] is not finite."""
+    nbr, Kb, R, C = blocks.shape
+    n = v.shape[0]
+    vp = v.new_zeros((-(-n // C) * C,))
+    vp[:n] = v
+    vg = vp.view(-1, C)[bcols.reshape(-1).long()].view(nbr, Kb, C)
+    keep = torch.arange(Kb)[None, :] < nblk[:, None]
+    part = torch.einsum('bkrc,bkc->bkr', blocks, torch.where(keep[..., None], vg, 0.0))
+    y = part.sum(1)
+    bad = (nblk < Kb) & ~torch.isfinite(v[:C]).all()
+    return torch.where(bad[:, None], float('nan'), y).reshape(-1)[:out_rows]
+
+
+_V_CASES = {'finite': None, 'inf at 0': (0, np.inf), 'nan at 0': (0, np.nan),
+            'nan at 5': (5, np.nan), 'nan at 200': (200, np.nan)}
+
+
+def _agree(got, want, scale, tol):
+    """NaN positions equal, infinities equal; elsewhere within ``tol`` of the
+    row's scale."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    inf = np.isinf(want)
+    np.testing.assert_array_equal(got[inf], want[inf])
+    ok = np.isfinite(want)
+    assert np.all(np.abs(got[ok] - want[ok]) <= tol * np.maximum(scale[ok], 1.0))
+
+
+@pytest.mark.parametrize('case', list(_V_CASES))
+def test_ell_skip_rule_matches_jnp(case):
+    """Summing only the slots below ``lens`` with the NaN rule gives what the
+    jnp expression ``jnp.sum(data * v[cols], 1)`` gives on the CPU, on rows
+    with trailing pads, interior pads (zero data at column 0 before the last
+    entry) and rows of pads only: within 1e-12 of each row's sum of |a| |v|
+    (the skipped pads add exact zeros; only the summation order differs),
+    and NaN exactly where jnp has it, for finite v and a non-finite v[0] or
+    v[5] or v[200]."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(31)
+    m, n, K = 333, 257, 17
+    want_lens = rng.integers(0, K + 1, m)
+    want_lens[::11] = 0
+    slot = np.arange(K)[None, :]
+    keep = slot < want_lens[:, None]
+    data = np.where(keep, rng.standard_normal((m, K)), 0.0)
+    cols = np.where(keep, rng.integers(1, n, (m, K)), 0).astype(np.int32)
+    inner = keep & (slot < want_lens[:, None] - 1) & (rng.random((m, K)) < 0.15)
+    data[inner], cols[inner] = 0.0, 0
+    v = rng.standard_normal(n)
+    if _V_CASES[case]:
+        i, val = _V_CASES[case]
+        v[i] = val
+    lens = tem.row_lens(torch.as_tensor(data), torch.as_tensor(cols))
+    np.testing.assert_array_equal(lens.numpy(), want_lens)
+    got = _ell_skip(torch.as_tensor(data), torch.as_tensor(cols), torch.as_tensor(v), lens)
+    want = np.asarray(jnp.sum(jnp.asarray(data) * jnp.asarray(v)[cols], axis=1))
+    scale = np.sum(np.abs(data) * np.abs(np.nan_to_num(v, posinf=0.0))[cols], axis=1)
+    _agree(got.numpy(), want, scale, 1e-12)
+    assert case == 'finite' or np.isnan(want).any()
+
+
+@pytest.mark.parametrize('case', list(_V_CASES))
+def test_bsr_skip_rule_matches_jax(case, monkeypatch):
+    """Contracting only the first ``nblk`` blocks of each block-row with the
+    NaN rule gives what ``osqp_tpu``'s ``_bsr_matvec`` gives in its 'einsum'
+    lowering (``OSQP_TPU_BSR_MV=einsum``; the 'onehot' lowering, picked
+    automatically at this size, spreads a NaN through its one-hot product to
+    every row), on block-rows holding 0 to Kb blocks, m and n multiples of
+    neither 8 nor 128: within 1e-12 of each row's sum of |a| |v| (skipped
+    padding adds exact zeros; only the summation order differs), and NaN
+    exactly where the reference has it for finite v, a NaN or inf inside
+    v[0:128] (which padding multiplies) and a NaN at v[200] (block-column 1
+    only)."""
+    monkeypatch.setenv('OSQP_TPU_BSR_MV', 'einsum')
+    rng = np.random.default_rng(32)
+    m, n = 395, 700
+    rows, cols = [], []
+    for b in range(-(-m // 8)):  # block-row b stores b % 6 blocks
+        for bc in rng.choice(-(-n // 128), b % 6, replace=False):
+            r = rng.integers(8 * b, min(8 * b + 8, m), 5)
+            c = rng.integers(128 * bc, min(128 * bc + 128, n), 5)
+            rows += r.tolist()
+            cols += c.tolist()
+    S = sp.coo_matrix((rng.standard_normal(len(rows)), (rows, cols)), shape=(m, n))
+    blocks, bcols = jspmv._bsr_arrays(S, np.float64)
+    v = rng.standard_normal(n)
+    if _V_CASES[case]:
+        i, val = _V_CASES[case]
+        v[i] = val
+    nblk = tbm.block_counts(torch.as_tensor(blocks), torch.as_tensor(bcols))
+    np.testing.assert_array_equal(nblk.numpy(), _stored_blocks_per_block_row(S))
+    assert nblk.min() == 0 and nblk.max() == bcols.shape[1] == 5
+    got = _bsr_skip(torch.as_tensor(blocks), torch.as_tensor(bcols), torch.as_tensor(v), m, nblk)
+    want = np.asarray(jspmv._bsr_matvec(blocks, bcols, v, m, n))
+    scale = np.abs(S) @ np.abs(np.nan_to_num(v, nan=0.0, posinf=0.0))
+    _agree(got.numpy(), want, scale, 1e-12)
+    if case != 'finite':
+        assert np.isnan(want).any() and not np.isnan(want).all()
 
 
 # --- the format ladder ------------------------------------------------------
