@@ -29,6 +29,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    iter_prec='default' and max_iter 500, held to the safety contract (only
    solved, solved-inaccurate or max-iter outcomes, and every solved
    instance passes its host check);
+4b. the vmap engine (BatchedOSQP with a P and an A per instance: the
+   condensed-MPC family with a plant per instance, from numpy with seed 0)
+   at the headline shape, eps 1e-3: float32 (kkt_method 'inv') and float64
+   ('chol'), each setup, a cold solve and 10 warm update(q) steps; then
+   B=1024, n=128, m=192 in float32 (cold and 3 warm) and one cold float64
+   solve with the indirect solver (PCG) at the headline shape.  Every
+   instance solved, every returned solution passing its float64 host check,
+   64 instances near the port's own float64 CPU optimum (float32 and
+   float64 runs); warm solves/s, iterations, rho updates, host syncs, CG
+   steps and a profile of one more warm step (idle share, launches per ADMM
+   iteration, heaviest kernels);
+4c. batch_qp_solve and a 10-step mpc_rollout at the headline shape in
+   float32: the pure solve gives BatchedOSQP's statuses and iterations, the
+   rollout the step-by-step BatchedOSQP run's, its results stay on the card
+   and its device-to-host copies (profiled) are no more than the loop's
+   per-epoch syncs;
+4d. the differentiable layers at B=256, n=32, m=48, eps 1e-4 (float64):
+   nn.torch.OSQP forward and forward+backward on CUDA tensors (solves/s,
+   every status solved), its x and five gradients against the same call on
+   CPU tensors within 1e-6 of each gradient's max-norm, a profile; then
+   five steps of examples/qp_layer.py's loop with make_qp_layer on the
+   card, whose loss must fall at every step.  These paths run no
+   hand-written kernel (the JAX package computes them with no Pallas
+   kernel either);
 5. K2 (dia_matvec) against its plain PyTorch version on the card: the sparse
    path's own DIA operators at n = 2^20 (P with 3 bands, A and A' with 2) in
    f32 and f64, gram_diag in f64 with a 0/1 mask / delta weight (as the
@@ -56,7 +80,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    verbose solve at n = 2^20 whose console rows are printed and counted;
 8. three more single-QP paths, each OSQP(sparse=True) in float64 at eps
    1e-3 with the format ladder on auto: setup, a cold solve and two warm
-   update(q) steps, with every kernel's launch count set to 0 just before
+   update(q) steps (the Portfolio path, whose every solve runs to max_iter,
+   its cold solve only), with every kernel's launch count set to 0 just before
    and read just after, then a profile of one more warm step.  The ELL
    family (an even-row random graph QP, n = 2^20: both operators ELL, K3),
    the BSR family (tests/test_spmv.py's clustered QP at nsb = 1024,
@@ -561,9 +586,14 @@ def residual_check(run):
         qk = (q if k == 0 else q + 0.01 * run['noise'][k - 1])[held]
         x = r.x[held].astype(np.float64)
         y = r.y[held].astype(np.float64)
-        Ax = x @ A.T
+        if A.ndim == 3:  # the vmap engine: each instance its own P and A
+            Ah, Ph = A[held], P[held]
+            Ax = np.einsum('bmn,bn->bm', Ah, x)
+            Px, Aty = np.einsum('bij,bj->bi', Ph, x), np.einsum('bmn,bm->bn', Ah, y)
+        else:
+            Ax = x @ A.T
+            Px, Aty = x @ P.T, y @ A
         proj = np.clip(Ax, l[held], u[held])
-        Px, Aty = x @ P.T, y @ A
 
         def nrm(V):
             return np.abs(V).max(axis=1)
@@ -581,7 +611,8 @@ def residual_check(run):
 
 def reference_check(run, n_check=64):
     """The first ``n_check`` instances of every step against the port's own
-    float64 CPU solve of the same QPs to eps 1e-7.  The card stops at eps
+    float64 CPU solve of the same QPs to eps 1e-7 (shared or per-instance P
+    and A).  The card stops at eps
     1e-3, which on this problem family leaves x up to about 1.5e-2 from the
     optimum (measured with the port on the CPU at B=512 and 2048), so the
     bound is 5e-2: a check that the card solved the same problems, while
@@ -589,8 +620,9 @@ def reference_check(run, n_check=64):
     from osqp_tpu_torch import BatchedOSQP
 
     sl = slice(0, n_check)
+    P, A = (M[sl] if M.ndim == 3 else M for M in (run['P'], run['A']))
     ref = BatchedOSQP(dtype=torch.float64, device='cpu')
-    ref.setup(run['P'], run['q'][sl], run['A'], run['l'][sl], run['u'][sl],
+    ref.setup(P, run['q'][sl], A, run['l'][sl], run['u'][sl],
               eps_abs=1e-7, eps_rel=1e-7, max_iter=100000, verbose=False)
     worst = 0.0
     for k, got in enumerate(run['results']):
@@ -603,6 +635,356 @@ def reference_check(run, n_check=64):
     if worst > 5e-2:
         raise AssertionError(f'x off the float64 optimum by up to {worst} > 5e-2')
     return worst
+
+
+VMAP_SLAB = (1024, 128, 192)
+VMAP_SLAB_WARM = 3
+LAYER = (256, 32, 48)
+LAYER_EPS = 1e-4
+LAYER_REPS = 3
+
+
+def build_vmap_problems(B, n, m, seed=0):
+    """The condensed-MPC family of examples/batched_mpc.py with a plant per
+    instance: P_b = L_b L_b'/n + 0.1 I (symmetric to the bit) and A_b, from
+    numpy with ``seed``; per-instance q, l, u as in build_shared_problems."""
+    rng = np.random.default_rng(seed)
+    L = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    P = L @ L.transpose(0, 2, 1) + 0.1 * np.eye(n)
+    P = np.triu(P) + np.triu(P, 1).transpose(0, 2, 1)
+    A = rng.standard_normal((B, m, n)) / np.sqrt(n)
+    q = rng.standard_normal((B, n))
+    x0 = rng.standard_normal((B, n))
+    s0 = rng.random((B, m)) + 0.1
+    u = np.einsum('bmn,bn->bm', A, x0) + s0
+    l = u - 2 * s0
+    return P, q, A, l, u
+
+
+def vmap_path(dtype, shape, steps, **over):
+    """BatchedOSQP on the vmap engine (engine and kkt_method on 'auto'):
+    setup, a cold solve and ``steps`` warm update(q) steps with q + 0.01
+    noise, on the card.  Returns the run's numbers."""
+    from osqp_tpu_torch import BatchedOSQP
+
+    B, n, m = shape
+    P, q, A, l, u = build_vmap_problems(B, n, m, seed=0)
+    noise = np.random.default_rng(1).standard_normal((max(steps, 1), B, n))
+    kw = dict(eps_abs=EPS, eps_rel=EPS, verbose=False, **over)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = BatchedOSQP(dtype=dtype, device=DEV)
+    s.setup(P, q, A, l, u, **kw)
+    r = s.solve()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results = [r]
+    for k in range(steps):
+        s.update(q=q + 0.01 * noise[k])
+        results.append(s.solve())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return dict(results=results, setup_cold_s=t1 - t0, warm_s=t2 - t1, P=P, q=q, A=A, l=l,
+                u=u, noise=noise, kw=kw, solver=s, shape=shape, dtype=dtype, steps=steps)
+
+
+def vmap_summary(run, reference=True):
+    """Checks of one vmap-engine run and its numbers: the vmap engine ran,
+    every instance of every step solved, every returned solution passes its
+    float64 host check, and (``reference``) 64 instances lie within 5e-2 of
+    the port's own float64 CPU optimum."""
+    s, res = run['solver'], run['results']
+    if s._engine != 'vmap':
+        raise AssertionError(f'per-instance P and A took the {s._engine} engine')
+    statuses = np.stack([r.info.status_val for r in res])
+    if not (statuses == 1).all():
+        raise AssertionError(f'vmap engine: {int((statuses != 1).sum())} instance-solves '
+                             'not solved')
+    B, n, m = run['shape']
+    iters = np.stack([r.info.iter for r in res])
+    steps = run['steps']
+    out = dict(
+        B=B, n=n, m=m, eps=EPS, dtype=str(run['dtype']).replace('torch.', ''),
+        kkt_method=None if s._indirect else s._kkt_method,
+        solver_type='indirect' if s._indirect else 'direct',
+        steps=steps, setup_and_cold_solve_s=run['setup_cold_s'],
+        mean_iters_cold=float(iters[0].mean()), max_iters=int(iters.max()),
+        rho_updates_cold=int(res[0].info.rho_updates.sum()),
+        rho_updates_warm=[int(r.info.rho_updates.sum()) for r in res[1:]],
+        host_syncs=[r.info.host_syncs for r in res],
+        residual_over_bound=residual_check(run))
+    if steps:
+        out.update(warm_s=run['warm_s'], warm_solves_per_s=B * steps / run['warm_s'],
+                   mean_iters_warm=float(iters[1:].mean()))
+    if reference:
+        out['x_err_vs_f64_optimum'] = reference_check(run)
+    return out
+
+
+def _profiled(fn):
+    """Run ``fn`` once under torch.profiler; return its result, the wall
+    ms and the device kernels' events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if sum(e.self_device_time_total for e in kernels) <= 0:
+        raise AssertionError('the profiler recorded no device time')
+    return out, wall_ms, kernels
+
+
+def _profile_numbers(wall_ms, kernels, top=6):
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    heavy = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+                kernel_launches_all=sum(e.count for e in kernels),
+                top_kernels=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                             for e in heavy])
+
+
+def profile_vmap_step(run):
+    """One more warm step of a vmap-engine run under torch.profiler: wall
+    and busy ms, idle share, kernel launches per ADMM iteration (the batch
+    runs until its last instance stops) and the heaviest kernels."""
+    s, q = run['solver'], run['q']
+    s.update(q=q - 0.01 * run['noise'][0])
+    r, wall_ms, kernels = _profiled(s.solve)
+    out = _profile_numbers(wall_ms, kernels)
+    admm = int(r.info.iter.max())
+    out.update(admm_iters_batch=admm, mean_iters=float(r.info.iter.mean()),
+               host_syncs=r.info.host_syncs,
+               launches_per_admm_iteration=out['kernel_launches_all'] / admm)
+    return out
+
+
+def vmap_phase():
+    """The vmap engine on the card: the per-instance condensed-MPC family at
+    the headline shape in float32 ('inv') and float64 ('chol'), cold and 10
+    warm steps each, then at B=1024, n=128, m=192 in float32 (cold and 3
+    warm), and one cold float64 solve with the indirect solver at the
+    headline shape."""
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        run = vmap_path(dtype, HEADLINE, STEPS)
+        summary = vmap_summary(run)
+        summary['profile'] = profile_vmap_step(run)
+        key = str(dtype).replace('torch.', '')
+        print(f'vmap engine ({key}):', json.dumps(summary), flush=True)
+        rows[key] = summary
+        del run
+    run = vmap_path(torch.float32, VMAP_SLAB, VMAP_SLAB_WARM)
+    rows['slab'] = vmap_summary(run, reference=False)
+    rows['slab']['profile'] = profile_vmap_step(run)
+    print('vmap engine (float32, n=128):', json.dumps(rows['slab']), flush=True)
+    del run
+    run = vmap_path(torch.float64, HEADLINE, 0, solver_type='indirect')
+    rows['indirect'] = vmap_summary(run, reference=False)
+    rows['indirect']['cg_steps_total_mean'] = float(run['results'][0].info.cg_iters.mean())
+    rows['indirect']['cg_steps_max'] = int(run['results'][0].info.cg_iters.max())
+    print('vmap engine (float64, indirect):', json.dumps(rows['indirect']), flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+class SyncSpy:
+    """Counts the vmap engine's host syncs (``core_batched._Counter.host``,
+    its only read of the device) for the duration of a ``with`` block."""
+
+    def __enter__(self):
+        from osqp_tpu_torch.solver import core_batched as cb
+
+        self._cls, self._orig, self.calls = cb._Counter, cb._Counter.host, 0
+        spy = self
+
+        def host(counter, *tensors):
+            spy.calls += 1
+            return spy._orig(counter, *tensors)
+
+        cb._Counter.host = host
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.host = self._orig
+
+
+def rollout_phase(steps=STEPS):
+    """batch_qp_solve and mpc_rollout at the headline shape, float32 ('inv'),
+    on the per-instance family.  The pure cold solve must give BatchedOSQP's
+    statuses and iterations; a ``steps``-step rollout from the setup state
+    must give the step-by-step BatchedOSQP run's (update(q), solve()), with
+    its results left on the card and no device-to-host copy beyond the
+    loop's own per-epoch syncs (counted around the rollout, and the
+    profiler's DtoH copies held to that count)."""
+    from osqp_tpu_torch import BatchedOSQP
+    from osqp_tpu_torch import batch as tb
+
+    B, n, m = HEADLINE
+    dt = torch.float32
+    P, q, A, l, u = build_vmap_problems(B, n, m, seed=0)
+    noise = np.random.default_rng(2).standard_normal((steps, B, n))
+    q_seq = q[None] + 0.01 * noise
+    kw = dict(eps_abs=EPS, eps_rel=EPS, verbose=False)
+
+    s = BatchedOSQP(dtype=dt, device=DEV).setup(P, q, A, l, u, **kw)
+    km = s._kkt_method
+    state = (s._data, s._scal, s._rho, s._factor, s._iterates)
+    stg = s._core_settings()
+    cold = s.solve()
+
+    def dev(v):
+        return torch.tensor(v, dtype=dt, device=DEV)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pure = tb.batch_qp_solve(dev(P), dev(q), dev(A), dev(l), dev(u), stg,
+                             torch.full((B,), 0.1, dtype=dt, device=DEV), kkt_method=km)
+    torch.cuda.synchronize()
+    pure_s = time.perf_counter() - t0
+    if not (np.array_equal(pure.status.cpu().numpy(), cold.info.status_val)
+            and np.array_equal(pure.iters.cpu().numpy(), cold.info.iter)):
+        raise AssertionError('batch_qp_solve differs from BatchedOSQP.solve')
+
+    qs = dev(q_seq)
+
+    def roll():
+        return tb.mpc_rollout(*state[:2], stg, *state[2:], qs, kkt_method=km)
+
+    torch.cuda.synchronize()
+    with SyncSpy() as spy:
+        t0 = time.perf_counter()
+        _, (x, its, st) = roll()
+        torch.cuda.synchronize()
+        roll_s = time.perf_counter() - t0
+    if x.device.type != torch.device(DEV).type or its.device.type != torch.device(DEV).type:
+        raise AssertionError('the rollout returned its results off the card')
+    with SyncSpy() as spy2:
+        _, wall_ms, kernels = _profiled(roll)
+    dtoh = sum(e.count for e in kernels if 'DtoH' in e.key)
+    if dtoh > spy2.calls:
+        raise AssertionError(f'{dtoh} device-to-host copies in the rollout, more than its '
+                             f'{spy2.calls} per-epoch syncs')
+
+    s2 = BatchedOSQP(dtype=dt, device=DEV).setup(P, q, A, l, u, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = []
+    for k in range(steps):
+        s2.update(q=q_seq[k])
+        ref.append(s2.solve())
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    st, its = st.cpu().numpy(), its.cpu().numpy()
+    for k, r in enumerate(ref):
+        if not (np.array_equal(st[k], r.info.status_val) and np.array_equal(its[k], r.info.iter)):
+            raise AssertionError(f'rollout step {k} differs from the step-by-step run')
+    if not (st == 1).all():
+        raise AssertionError(f'rollout: {int((st != 1).sum())} instance-solves not solved')
+    out = dict(B=B, n=n, m=m, eps=EPS, dtype='float32', kkt_method=km, steps=steps,
+               batch_qp_solve_s=pure_s, batch_qp_solve_mean_iters=float(cold.info.iter.mean()),
+               rollout_s=roll_s, rollout_solves_per_s=B * steps / roll_s,
+               step_by_step_s=step_s, step_by_step_solves_per_s=B * steps / step_s,
+               mean_iters=float(its.mean()), host_syncs=spy.calls,
+               profile_dtoh_copies=dtoh, profile_host_syncs=spy2.calls,
+               profile=_profile_numbers(wall_ms, kernels))
+    print('batch_qp_solve and mpc_rollout:', json.dumps(out), flush=True)
+    return out
+
+
+def layer_problem(B, n, m, seed=0):
+    """The per-instance family as the reference layer's inputs: P's upper
+    triangle and all of A as sparsity patterns with per-instance values."""
+    P, q, A, l, u = build_vmap_problems(B, n, m, seed)
+    P_idx = np.triu_indices(n)
+    A_idx = np.nonzero(np.ones((m, n)))
+    target = np.random.default_rng(seed + 3).standard_normal((B, n))
+    return P_idx, A_idx, P[:, P_idx[0], P_idx[1]], q, A.reshape(B, -1), l, u, target
+
+
+def layer_phase():
+    """The differentiable layers at B=256, n=32, m=48, eps 1e-4:
+    nn.torch.OSQP forward and forward+backward on CUDA tensors in float64
+    (solves/s over ``LAYER_REPS`` calls; a status other than solved raises),
+    its x and the gradients of all five inputs against the same call on CPU
+    tensors (within 1e-6 of each gradient's max-norm), a profile of one
+    forward+backward; then five steps of examples/qp_layer.py's loop with
+    make_qp_layer on the card, whose loss must fall at every step."""
+    from osqp_tpu_torch.nn import torch as tnn
+    from osqp_tpu_torch.nn.layer import make_qp_layer
+
+    B, n, m = LAYER
+    P_idx, A_idx, Pv, q, Av, l, u, target = layer_problem(B, n, m)
+    module = tnn.OSQP(P_idx, (n, n), A_idx, (m, n), eps_rel=LAYER_EPS, eps_abs=LAYER_EPS)
+
+    def run(device, backward):
+        vals = [torch.tensor(v, dtype=torch.float64, device=device, requires_grad=backward)
+                for v in (Pv, q, Av, l, u)]
+        x = module(*vals)
+        if backward:
+            (0.5 * ((x - torch.tensor(target, device=device)) ** 2).sum()).backward()
+        if device != 'cpu':
+            torch.cuda.synchronize()
+        return [x.detach()] + ([v.grad for v in vals] if backward else [])
+
+    run(DEV, True)  # warm-up
+    times = {}
+    for backward in (False, True):
+        t0 = time.perf_counter()
+        for _ in range(LAYER_REPS):
+            out = run(DEV, backward)
+        times[backward] = (time.perf_counter() - t0) / LAYER_REPS
+    cpu = run('cpu', True)
+    errs = []
+    for got, want in zip(out, cpu):
+        if got.device.type != torch.device(DEV).type:
+            raise AssertionError('a layer result or gradient left the card')
+        scale = float(want.abs().max())
+        errs.append(float((got.cpu() - want).abs().max()) / max(scale, 1e-300))
+    if not max(errs) <= 1e-6:
+        raise AssertionError(f'layer card vs cpu: relative errors {errs} > 1e-6')
+    _, wall_ms, kernels = _profiled(lambda: run(DEV, True))
+
+    # examples/qp_layer.py's loop, on the card
+    rng = np.random.default_rng(0)
+    Bs, ns, ms = 8, 6, 4
+    L = rng.standard_normal((Bs, ns, ns))
+    Pq = 0.1 * np.einsum('bij,bkj->bik', L, L) + 0.2 * np.eye(ns)
+    Aq = rng.standard_normal((Bs, ms, ns))
+    x0 = rng.standard_normal((Bs, ns))
+    s0 = rng.random((Bs, ms))
+    uq = np.einsum('bmn,bn->bm', Aq, x0) + s0
+    lq = uq - 2 * s0
+    tq = rng.standard_normal((Bs, ns))
+    layer = make_qp_layer(dtype=torch.float64, eps_abs=1e-8, eps_rel=1e-8)
+    fixed = [torch.tensor(v, device=DEV) for v in (Pq, Aq, lq, uq, tq)]
+
+    def loss_fn(qv):
+        x = layer(fixed[0], qv, fixed[1], fixed[2], fixed[3])
+        return 0.5 * ((x - fixed[4]) ** 2).mean()
+
+    qv = torch.zeros((Bs, ns), dtype=torch.float64, device=DEV)
+    losses = [float(loss_fn(qv))]
+    for _ in range(5):
+        qv = qv.detach().requires_grad_()
+        (g,) = torch.autograd.grad(loss_fn(qv), qv)
+        qv = qv.detach() - 0.5 * g
+        losses.append(float(loss_fn(qv)))
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f'make_qp_layer loop: the loss did not fall at every step: {losses}')
+    out = dict(B=B, n=n, m=m, eps=LAYER_EPS, dtype='float64', reps=LAYER_REPS,
+               forward_s=times[False], forward_solves_per_s=B / times[False],
+               forward_backward_s=times[True], forward_backward_solves_per_s=B / times[True],
+               card_vs_cpu_rel_err=dict(zip(('x', 'dP', 'dq', 'dA', 'dl', 'du'), errs)),
+               profile_forward_backward=_profile_numbers(wall_ms, kernels),
+               qp_layer_losses=losses)
+    print('differentiable layers:', json.dumps(out), flush=True)
+    return out
 
 
 SPARSE_N = 1 << 20
@@ -1303,10 +1685,10 @@ def profile_family(o, q):
                              for e in top])
 
 
-def family_path(name, build, expect, kernel, solved=True, profile_iters=None):
+def family_path(name, build, expect, kernel, solved=True, profile_iters=None, warm=FAMILY_WARM):
     """osqp_tpu_torch.OSQP(sparse=True) on the card in float64, eps 1e-3, the
     format ladder on auto and every other setting at its default: setup, a
-    cold solve and FAMILY_WARM warm update(q * 1.01^k) steps, with every
+    cold solve and ``warm`` warm update(q * 1.01^k) steps, with every
     kernel's launch count set to 0 just before and read just after.  The
     formats must be ``expect`` and ``kernel`` must have launched.  With
     ``solved``, every step must be solved and pass its f64 host
@@ -1333,7 +1715,7 @@ def family_path(name, build, expect, kernel, solved=True, profile_iters=None):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     qs, results, times = [], [], []
-    for k in range(FAMILY_WARM + 1):
+    for k in range(warm + 1):
         qs.append(q * 1.01 ** k)
         t0 = time.perf_counter()
         if k:
@@ -1364,7 +1746,7 @@ def family_path(name, build, expect, kernel, solved=True, profile_iters=None):
         device_mem_gb=torch.cuda.memory_allocated() / 1e9)
     if profile_iters:
         o.update_settings(max_iter=profile_iters)
-    summary['profile'] = profile_family(o, q * 1.01 ** (FAMILY_WARM + 1))
+    summary['profile'] = profile_family(o, q * 1.01 ** (warm + 1))
     summary['profile']['max_iter'] = profile_iters
     print(f'{name} path:', json.dumps(summary), flush=True)
     return summary, o
@@ -1787,6 +2169,11 @@ def main():
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True, check=True)
     card_line = smi.stdout.strip().splitlines()[0]
+    t_start = time.perf_counter()
+
+    def mark(phase):
+        print(f'[{time.perf_counter() - t_start:.1f} s] {phase} done', flush=True)
+
     kind = torch.cuda.get_device_name(0)
     print(f'python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}')
     print(card_line, flush=True)
@@ -1805,6 +2192,7 @@ def main():
 
     # 3. K1 against its plain version
     rows = kernel_phase(kind)
+    mark('phase 3 (K1)')
 
     # 4. the batched main path in each mode, with the launch counts read
     # around each run
@@ -1825,9 +2213,20 @@ def main():
         k: dict(mean_iters_cold=v['mean_iters_cold'], mean_iters_warm=v.get('mean_iters_warm'),
                 warm_solves_per_s=v.get('warm_solves_per_s')) for k, v in batched.items()}),
         flush=True)
+    mark('phase 4 (shared engine)')
+
+    # 4b-4d. the vmap engine, batch_qp_solve and mpc_rollout, and the
+    # differentiable layers (no hand-written kernel on these paths)
+    vmap_phase()
+    mark('phase 4b (vmap engine)')
+    rollout_phase()
+    mark('phase 4c (batch_qp_solve, mpc_rollout)')
+    layer_phase()
+    mark('phase 4d (layers)')
 
     # 5. K2 against its plain version
     dia_rows = dia_phase(kind)
+    mark('phase 5 (K2)')
 
     # 6. the sparse single-QP main path, with the launch counts read around it
     se.launches = dm.launches = 0
@@ -1849,6 +2248,7 @@ def main():
     print('sparse main path:', json.dumps(sp_summary), flush=True)
     print('sparse card vs cpu (n=16384, f64):', json.dumps(sparse_card_vs_cpu()), flush=True)
     print('sparse warm step profile:', json.dumps(profile_sparse(sp_run)), flush=True)
+    mark('phase 6 (sparse path)')
 
     # 7. polish, time_limit, SIGINT and verbose on the single-QP path
     pol = sparse_polish_path(sp_run)
@@ -1862,6 +2262,7 @@ def main():
     print('SIGINT (n=2^20):', json.dumps(sigint_path(sp_run, tl['solve_time_s'])), flush=True)
     print('verbose (n=2^20):', json.dumps(verbose_path(sp_run)), flush=True)
     del sp_run
+    mark('phase 7 (polish, time_limit, SIGINT, verbose)')
 
     # 8. the ELL, BSR and BCOO single-QP paths, each with its launch counts
     # read around it, then K3 and K4 against their plain versions on those
@@ -1879,17 +2280,21 @@ def main():
     ladder_rows(o, 'bsr')
     del o
     torch.cuda.empty_cache()
+    # the Portfolio path runs its cold solve only: each solve takes about 64 s
+    # at max_iter, and the run has to stay inside half its time limit
     fam['portfolio'], o = family_path(
         'portfolio', lambda: portfolio_family(PORTFOLIO_N, PORTFOLIO_K), ('dia', 'bcoo'),
-        'dia_matvec', solved=False, profile_iters=200)
+        'dia_matvec', solved=False, profile_iters=200, warm=0)
     ladder_rows(o, 'portfolio')
     del o
     torch.cuda.empty_cache()
 
     # 9. the three families card against CPU at a small size, and the
     # derivatives card against CPU
+    mark('phase 8 (ELL, BSR, Portfolio)')
     families_card_vs_cpu()
     derivatives_card_vs_cpu()
+    mark('phase 9 (card vs cpu)')
 
     # 10. the kernels line and the result line
     head = rows[0]

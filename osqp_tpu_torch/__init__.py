@@ -2,11 +2,17 @@
 
 The port of ``osqp_tpu`` to torch tensors on an NVIDIA Hopper GPU.  It imports
 nothing of JAX or of ``osqp_tpu``.  Entry points run on CUDA unless the caller
-passes ``device='cpu'``.  It holds the shared-structure batched engine
-(``BatchedOSQP``), whose epoch runs as one hand-written CUDA kernel, and the
+passes ``device='cpu'``.  It holds the batched solver ``BatchedOSQP`` with two
+engines: the shared-structure engine (P and A shared by the batch), whose
+epoch runs as one hand-written CUDA kernel, and the vmap engine (every
+instance its own P and A: batched Cholesky, explicit inverse or PCG; pure
+entry points ``batch.batch_qp_solve`` and ``batch.mpc_rollout``); the
 single-QP front end (``OSQP``), whose sparse mode runs PCG on DIA, ELL or BSR
 operators with hand-written CUDA matvecs (or on cuSPARSE for ragged
-patterns), with the adjoint and forward derivatives of its solution.
+patterns), with the adjoint and forward derivatives of its solution; and the
+differentiable layers of the ``nn`` package (``nn.torch.OSQP``, the
+reference's module API, and ``nn.layer.make_qp_layer``), forward through the
+vmap engine, backward one batched adjoint KKT solve.
 """
 
 import torch as _torch

@@ -1,7 +1,8 @@
 """Carry the JAX package's setup state into the port.
 
-``from_jax_setup`` (the shared batched engine) and ``from_jax_solver`` (the
-single-QP ``Solver``) take numpy arrays, never JAX arrays, so this module
+``from_jax_setup`` (the shared batched engine), ``from_jax_batch`` (the vmap
+batched engine) and ``from_jax_solver`` (the single-QP ``Solver``) take numpy
+arrays, never JAX arrays, so this module
 (like the rest of the port) imports nothing of JAX.  With them a test starts
 both loops from identical state and holds the loop apart from setup.
 """
@@ -14,6 +15,7 @@ import torch
 
 from .ops.spmv import BsrMatrix, DiaMatrix, EllMatrix, coo_from_scipy
 from .settings import np_dtype
+from .solver import core_batched as cb
 from .solver.core import Factor, Iterates, QPData, RhoState, Scaling
 
 
@@ -95,3 +97,36 @@ def from_jax_solver(arrays, device, dtype):
     factor = Factor(L=t(L) if L.size else None, diag=t(diag), Minv=None)
     iterates = Iterates(*(t(v) for v in arrays['iterates']))
     return data, scal, rho_state, factor, iterates
+
+
+def from_jax_batch(arrays, device, dtype):
+    """Port state from ``osqp_tpu.batch.BatchedOSQP``'s vmap engine after
+    setup.
+
+    ``arrays`` is ``(data, scal, rho, factor, iterates)``: the engine's
+    ``_data``, ``_scal``, ``_rho``, ``_factor`` and ``_iterates`` as tuples of
+    numpy arrays in their fields' order, each with a leading batch axis:
+    ``(P, q, A, l, u)``, ``(D, Dinv, E, Einv, c, cinv)``, ``(rho, rho_vec,
+    rho_inv_vec, constr_type)``, ``(L, diag, Minv)`` (an empty ``L`` or
+    ``Minv`` for a factor the method does not keep) and ``(x, z, y)``.
+    Returns ``solver.core_batched``'s ``(QPData, Scaling, RhoState, Factor,
+    Iterates)`` on ``device`` at ``dtype``.
+    """
+    f = np_dtype(dtype)
+    device = torch.device(device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, dtype=f), device=device)
+
+    def opt(a):
+        a = np.asarray(a)
+        return t(a) if a.size else None
+
+    data, scal, rho, factor, iterates = arrays
+    rho, rho_vec, rho_inv, types = rho
+    L, diag, Minv = factor
+    return (cb.QPData(*(t(v) for v in data)), cb.Scaling(*(t(v) for v in scal)),
+            cb.RhoState(rho=t(rho), rho_vec=t(rho_vec), rho_inv_vec=t(rho_inv),
+                        constr_type=torch.tensor(np.asarray(types, np.int8), device=device)),
+            cb.Factor(L=opt(L), diag=t(diag), Minv=opt(Minv)),
+            cb.Iterates(*(t(v) for v in iterates)))

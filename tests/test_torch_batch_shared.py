@@ -260,13 +260,23 @@ def test_batched_osqp_infeasible_instances_match_jax():
 
 
 def test_batched_osqp_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match='vmap'):
-        BatchedOSQP(device='cpu', engine='vmap')
+    """The shared engine's paths that still raise: a batched P or A forced
+    onto it, the indirect solver, the reduced iteration precisions at
+    float64 or on the vmap engine, and unknown engine or KKT names."""
     P, A, q, l, u = _problems(4, 3, 5)
-    s = BatchedOSQP(device='cpu')
-    with pytest.raises(NotImplementedError, match='vmap'):
+    s = BatchedOSQP(device='cpu', engine='shared')
+    with pytest.raises(ValueError, match='shared engine requires unbatched'):
         s.setup(np.tile(P, (4, 1, 1)), q, A, l, u)
     with pytest.raises(NotImplementedError, match='indirect'):
-        s.setup(P, q, A, l, u, solver_type='indirect')
+        BatchedOSQP(device='cpu').setup(P, q, A, l, u, solver_type='indirect')
     with pytest.raises(ValueError, match='float32 only'):
         BatchedOSQP(device='cpu', iter_prec='high')
+    with pytest.raises(ValueError, match="shared engine's"):
+        BatchedOSQP(device='cpu', dtype=torch.float32, engine='vmap', iter_prec='high')
+    with pytest.raises(ValueError, match="shared engine's"):
+        BatchedOSQP(device='cpu', dtype=torch.float32, iter_prec='high').setup(
+            np.tile(P, (4, 1, 1)), q, A, l, u)
+    with pytest.raises(ValueError, match='engine must be'):
+        BatchedOSQP(device='cpu', engine='loop')
+    with pytest.raises(ValueError, match='kkt_method must be'):
+        BatchedOSQP(device='cpu', kkt_method='lu')

@@ -68,6 +68,14 @@ assert o._solver._sparse_fmt_P == o._solver._sparse_fmt_A == 'dia'
 assert o.solve(raise_error=True).info.status == 'solved'
 o.update_settings(polishing=True, verbose=True, time_limit=1e9)
 assert o.solve(raise_error=True).info.status_polish == 1
+Pb = np.stack([P, 2 * P, P + np.eye(n)])
+v = osqp_tpu_torch.BatchedOSQP(device='cpu').setup(Pb, q[:3], A, -np.ones(m), np.ones(m))
+assert v._engine == 'vmap' and (v.solve().info.status_val == 1).all()
+from osqp_tpu_torch.nn.layer import make_qp_layer
+args = [torch.tensor(a, requires_grad=True) for a in (Pb, q[:3], np.stack([A] * 3),
+                                                       -np.ones((3, m)), np.ones((3, m)))]
+make_qp_layer(dtype=torch.float64)(*args).sum().backward()
+assert all(a.grad is not None and a.grad.device.type == 'cpu' for a in args)
 assert not any(k == 'jax' or k.startswith(('jax.', 'osqp_tpu.')) for k in sys.modules
                if sys.modules[k] is not None)
 print('ok')
@@ -78,7 +86,8 @@ def test_port_imports_and_solves_without_jax():
     """A fresh interpreter in which importing jax or osqp_tpu fails imports
     every module of the port, solves a tiny batch and a small banded QP in
     sparse mode on the CPU, then the banded QP again with polishing, verbose
-    printing and a time limit."""
+    printing and a time limit, a batch with per-instance P on the vmap
+    engine and a forward and backward pass of the nn layer."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, '-c', _CHILD], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -87,10 +96,12 @@ def test_port_imports_and_solves_without_jax():
 
 
 def test_no_device_without_cuda_raises(monkeypatch):
-    """BatchedOSQP() with no device raises when CUDA is absent."""
+    """BatchedOSQP() with no device raises when CUDA is absent, on either
+    engine."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        osqp_tpu_torch.BatchedOSQP()
+    for engine in ('auto', 'vmap', 'shared'):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            osqp_tpu_torch.BatchedOSQP(engine=engine)
     assert osqp_tpu_torch.BatchedOSQP(device='cpu')._device.type == 'cpu'
 
 

@@ -66,3 +66,20 @@ def test_top_level_name_matches_jax_package(name):
         assert got(code) == code and issubclass(got, Exception)
     else:
         assert callable(got)
+
+
+@pytest.mark.parametrize('module, name', [
+    ('batch', 'BatchedOSQP'), ('batch', 'batch_qp_solve'), ('batch', 'mpc_rollout'),
+    ('batch', 'mpc_rollout_donated'), ('batch', 'default_core_settings'),
+    ('nn.layer', 'make_qp_layer'), ('nn.layer', 'QPLayerResult'), ('nn.torch', 'OSQP'),
+    ('nn.torch', 'to_numpy')])
+def test_batched_and_layer_names_match_jax_package(module, name):
+    """The vmap engine's and the layers' names live in the same modules as in
+    ``osqp_tpu``; the layer result has the same fields."""
+    import importlib
+
+    got = getattr(importlib.import_module(f'osqp_tpu_torch.{module}'), name)
+    want = getattr(importlib.import_module(f'osqp_tpu.{module}'), name)
+    assert callable(got) and callable(want)
+    if name == 'QPLayerResult':
+        assert got._fields == want._fields
