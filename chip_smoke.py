@@ -76,7 +76,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    direct path with polish (f64 Cholesky) at n = 2000, m = 3000 (rejected
    at density 0.01, so its line search runs there, accepted at 0.002); a
    rejected polish's line search at n = 30; time_limit = 0.05 s and a real SIGINT
-   from a timer at n = 2^20, each stopping after whole chunks; and one
+   from a timer started when the first chunk completes, at n = 2^20, each
+   stopping after whole chunks; and one
    verbose solve at n = 2^20 whose console rows are printed and counted;
 8. three more single-QP paths, each OSQP(sparse=True) in float64 at eps
    1e-3 with the format ladder on auto: setup, a cold solve and two warm
@@ -102,8 +103,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1e-6 of ||x||), and the derivative API on the card against the CPU on
    tests/test_derivative.py's problems and a dense random QP at n = 2000,
    m = 3000 (within 1e-9 relative);
-10. a JSON line with each kernel's numbers, then the result line
-   {"ok": true, "device": {...}}.
+10. codegen and export: the models of phases 6 and 8 (banded f32 DIA at
+   n = 2^20: K2; ELL at n = 2^20 and BSR at n = 131,072, f64: K3, K4) and a
+   dense direct f64 model (phase 7's random QP at n = 2000, m = 3000,
+   density 0.002, whose cold solve refactors once) are each exported with
+   ``codegen.driver.export_aot`` (a torch.export program) right after their
+   setup and run once cold, every launch count set to 0 just before the
+   exported call and read just after (then restored); each must give the
+   live cold solve's status and iterations (and CG steps, sparse), pass
+   the f64 host termination test, and launch its path's kernel; the banded
+   program goes through torch.export.save and load and must give the same
+   outputs bit for bit.  Then OSQP.codegen from card models of
+   tests/test_codegen.py's vectors problem and its n = 2000 sparse problem
+   (the sparse emitter, eps 1e-7): the emitted workspace.c and
+   emosqp_solver.c compiled with the system C compiler into a shared
+   library, osqp_solve called through ctypes: solved, x within 1e-4 of the
+   live solve's;
+11. a JSON line with each kernel's numbers (with its launches inside the
+   exported programs), then the result line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  It needs the repository's
 ``osqp_tpu_torch`` beside it and a CUDA device.
@@ -1157,9 +1174,11 @@ def sparse_residual_check(P, A, l, u, q, x, y, eps, hold=True):
     return max(pri / eps_pri, dua / eps_dua)
 
 
-def sparse_main_path(dtype=torch.float32):
+def sparse_main_path(dtype=torch.float32, export=None):
     """osqp_tpu_torch.OSQP in sparse mode on the card at n = 2^20: setup, a
-    cold solve and SPARSE_WARM warm update(q) steps.  Returns the run."""
+    cold solve and SPARSE_WARM warm update(q) steps.  With ``export`` (an
+    ``Exports``), the model is exported right after its setup, before its
+    first solve (phase 10).  Returns the run."""
     from osqp_tpu_torch import OSQP
 
     P, q, A, l, u = banded_qp(SPARSE_N, seed=0)
@@ -1170,6 +1189,8 @@ def sparse_main_path(dtype=torch.float32):
     s.setup(P=P, q=q, A=A, l=l, u=u, **kw)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    if export is not None:
+        export.run('banded (DIA, K2)', s, (P, q, A, l, u), 'dia_matvec', round_trip=True)
     qs, results, times = [q], [], []
     for k in range(SPARSE_WARM + 1):
         if k:
@@ -1179,6 +1200,8 @@ def sparse_main_path(dtype=torch.float32):
             s.update(q=qs[k])
         results.append(s.solve(raise_error=False))
         times.append(time.perf_counter() - t0)
+    if export is not None:
+        export.check('banded (DIA, K2)', results[0], times[0])
     return dict(solver=s, P=P, A=A, l=l, u=u, qs=qs, results=results, setup_s=setup_s,
                 times=times, dtype=dtype)
 
@@ -1486,29 +1509,43 @@ def time_limit_path(sp_run):
 
 
 def sigint_path(sp_run, chunk_s):
-    """A real SIGINT, sent by a timer 1.5 chunks into a solve with
-    time_limit = 1e9 at eps 1e-9 on the n = 2^20 QP: the solve returns
-    'interrupted' with the last completed chunk's finite iterates."""
+    """A real SIGINT on the n = 2^20 QP (time_limit = 1e9, eps 1e-9): the
+    backend's between-chunk hook starts a timer when the first chunk has
+    completed, and the timer sends SIGINT half a chunk later, so the signal
+    lands inside the second chunk however long the first one took.  The
+    solve returns 'interrupted' with the last completed chunk's finite
+    iterates."""
     import os
     import signal
     import threading
 
+    from osqp_tpu_torch import backend
+
     o = sp_run['solver']
     o.update_settings(rho=0.1, time_limit=1e9, max_iter=20 * CHUNK)
+    timer = threading.Timer(0.5 * chunk_s, os.kill, (os.getpid(), signal.SIGINT))
+    polls, hook = [], backend._poll_interrupt
+
+    def arm_after_first_chunk():
+        # called before each chunk: the second call follows the first chunk
+        polls.append(None)
+        if len(polls) == 2:
+            timer.start()
+
     old = signal.signal(signal.SIGINT, signal.default_int_handler)
-    timer = threading.Timer(1.5 * chunk_s, os.kill, (os.getpid(), signal.SIGINT))
+    backend._poll_interrupt = arm_after_first_chunk
     try:
-        timer.start()
         t0 = time.perf_counter()
         r = o.solve(raise_error=False)
         wall = time.perf_counter() - t0
     finally:
         timer.cancel()
+        backend._poll_interrupt = hook
         signal.signal(signal.SIGINT, old)
     if r.info.status != 'interrupted' or r.info.iter < CHUNK or r.info.iter % CHUNK \
             or not np.isfinite(r.x).all():
         raise AssertionError(f'SIGINT: {r.info.status} after {r.info.iter} iterations')
-    return dict(status=r.info.status, iters=r.info.iter, timer_s=1.5 * chunk_s,
+    return dict(status=r.info.status, iters=r.info.iter, timer_s=0.5 * chunk_s,
                 solve_wall_s=wall)
 
 
@@ -1685,7 +1722,8 @@ def profile_family(o, q):
                              for e in top])
 
 
-def family_path(name, build, expect, kernel, solved=True, profile_iters=None, warm=FAMILY_WARM):
+def family_path(name, build, expect, kernel, solved=True, profile_iters=None, warm=FAMILY_WARM,
+                export=None):
     """osqp_tpu_torch.OSQP(sparse=True) on the card in float64, eps 1e-3, the
     format ladder on auto and every other setting at its default: setup, a
     cold solve and ``warm`` warm update(q * 1.01^k) steps, with every
@@ -1698,7 +1736,9 @@ def family_path(name, build, expect, kernel, solved=True, profile_iters=None, wa
     limit with finite iterates, a solved step must pass the host test, and
     each step's ratios of residual and of duality gap to their bounds are
     reported.  Then a profile of one more warm step, cut to
-    ``profile_iters`` iterations when given.
+    ``profile_iters`` iterations when given.  With ``export`` (an
+    ``Exports``), the model is exported right after its setup, before its
+    first solve (phase 10), with the launch counts kept apart.
     Returns the summary and the solver."""
     from osqp_tpu_torch import OSQP
 
@@ -1714,6 +1754,8 @@ def family_path(name, build, expect, kernel, solved=True, profile_iters=None, wa
     o.setup(P=P, q=q, A=A, l=l, u=u, eps_abs=EPS, eps_rel=EPS, polishing=False, verbose=False)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    if export is not None:
+        export.run(f'{name} ({kernel})', o, (P, q, A, l, u), kernel)
     qs, results, times = [], [], []
     for k in range(warm + 1):
         qs.append(q * 1.01 ** k)
@@ -1723,6 +1765,8 @@ def family_path(name, build, expect, kernel, solved=True, profile_iters=None, wa
         results.append(o.solve(raise_error=False))
         times.append(time.perf_counter() - t0)
     launches = {k: mod.launches for k, mod in counters.items()}
+    if export is not None:
+        export.check(f'{name} ({kernel})', results[0], times[0])
     fmts = (o._solver._sparse_fmt_P, o._solver._sparse_fmt_A)
     if fmts != expect:
         raise AssertionError(f'{name}: formats {fmts}, expected {expect}')
@@ -2147,6 +2191,224 @@ def derivatives_card_vs_cpu():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 10. codegen and export
+# ---------------------------------------------------------------------------
+
+
+class Exports:
+    """Phase 10's exported programs.  ``run`` exports a model right after its
+    setup, before its first solve (``codegen.driver.export_aot``, a
+    ``torch.export`` program whose sparse products are the ``ops.library``
+    operators), and runs the program once cold, with every kernel's launch
+    count set to 0 just before the exported call and read just after; the
+    counts are then restored, so the path's own counts stay its own.
+    ``check`` holds that run to the path's live cold solve of the same model:
+    the same status and iterations (and CG steps in sparse mode), x passing
+    its f64 host termination test.  ``seconds`` sums the phase's wall time."""
+
+    def __init__(self):
+        self.runs = {}
+        self.seconds = 0.0
+
+    def run(self, name, o, prob, kernel, round_trip=False):
+        import os
+        import tempfile
+
+        from osqp_tpu_torch.codegen.driver import AotSolve, export_aot
+
+        t_phase = time.perf_counter()
+        P, q, A, l, u = prob
+        counters = _launch_counters()
+        saved = {k: mod.launches for k, mod in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compiled = export_aot(o)
+        export_s = time.perf_counter() - t0
+        for mod in counters.values():
+            mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = compiled.solve(q, l, u)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k: mod.launches for k, mod in counters.items()}
+        if kernel and launches[kernel] <= 0:
+            raise AssertionError(f'export {name}: the {kernel} kernel never launched')
+        rec = dict(dtype=str(o._solver._dtype).replace('torch.', ''), n=int(o.n), m=int(o.m),
+                   kernel=kernel, export_s=export_s, exported_wall_s=wall_s, launches=launches,
+                   result=res, prob=prob)
+        if round_trip:
+            # torch.export.save / load on the card: the reloaded program
+            # must give the same outputs bit for bit
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, 'solve.pt2')
+                torch.export.save(compiled.program, path)
+                rec['saved_mb'] = os.path.getsize(path) / 1e6
+                loaded = AotSolve(torch.export.load(path), compiled.dtype, compiled.device)
+            again = loaded.solve(q, l, u)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(again, res)):
+                raise AssertionError(f'export {name}: the reloaded program gives other outputs')
+            rec['round_trip_s'] = time.perf_counter() - t0
+            rec['round_trip_bit_identical'] = True
+        for k, mod in counters.items():
+            mod.launches = saved[k]
+        self.runs[name] = rec
+        self.seconds += time.perf_counter() - t_phase
+
+    def check(self, name, live, live_wall_s, sparse=True):
+        t_phase = time.perf_counter()
+        rec = self.runs[name]
+        r = rec.pop('result')
+        P, q, A, l, u = rec.pop('prob')
+        got = dict(status=int(r.status), iters=int(r.iters), cg_steps=int(r.cg_iters))
+        want = dict(status=live.info.status_val, iters=live.info.iter,
+                    cg_steps=live.info.cg_iters)
+        if not sparse:
+            del got['cg_steps'], want['cg_steps']
+        if got != want:
+            raise AssertionError(f'export {name}: exported {got}, live {want}')
+        x = r.x.cpu().numpy().astype(np.float64)
+        y = r.y.cpu().numpy().astype(np.float64)
+        rec.update(status=live.info.status, iters=int(r.iters), cg_steps=int(r.cg_iters),
+                   rho_updates=int(r.rho_updates), live_cold_wall_s=live_wall_s,
+                   max_abs_dx_vs_live=float(np.abs(x - live.x).max()),
+                   residual_over_bound=sparse_residual_check(P, A, l, u, q, x, y, EPS))
+        print(f'export {name}:', json.dumps(rec), flush=True)
+        self.seconds += time.perf_counter() - t_phase
+        return rec
+
+
+def dense_export_case(exports, n=2000, m=3000, density=0.002):
+    """The dense direct path (f64, Cholesky, refactored inside the exported
+    loop at each rho update) on phase 7's random sparse QP at n = 2000,
+    m = 3000 and the density at which its cold solve updates rho (once, at
+    eps 1e-3; 0.01 solves with none): export right after setup, one
+    exported cold solve against the live cold solve."""
+    from osqp_tpu_torch import OSQP
+
+    t_phase = time.perf_counter()
+    prob = random_sparse_qp(n, m, density, seed=0)
+    P, q, A, l, u = prob
+    o = OSQP(device=DEV, sparse=False)
+    o.setup(P=P, q=q, A=A, l=l, u=u, eps_abs=EPS, eps_rel=EPS, polishing=False, verbose=False)
+    exports.seconds += time.perf_counter() - t_phase
+    exports.run('dense direct (Cholesky)', o, prob, None)
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    live = o.solve(raise_error=False)
+    wall = time.perf_counter() - t0
+    exports.seconds += time.perf_counter() - t_phase
+    rec = exports.check('dense direct (Cholesky)', live, wall, sparse=False)
+    if rec['rho_updates'] < 1:
+        raise AssertionError('dense export: no rho update, so no refactorization in the loop')
+    return rec
+
+
+def codegen_problems():
+    """tests/test_codegen.py's vectors problem (eps 1e-8) and its n = 2000
+    banded QP of the sparse emitter, the latter at eps 1e-7 so that the two
+    solvers' answers (the emitted Jacobi-PCG ADMM and the port's) lie well
+    within 1e-4 of each other."""
+    import scipy.sparse as sparse
+
+    P = sparse.diags([11.0, 0.0], format='csc')
+    A = sparse.csc_matrix([[-1, 0], [0, -1], [-1, -3], [2, 5], [3, 4]], dtype=float)
+    vec = ((P, np.array([3.0, 4.0]), A, -np.inf * np.ones(5),
+            np.array([0.0, 0.0, -15.0, 100.0, 80.0])),
+           dict(eps_abs=1e-8, eps_rel=1e-8, rho=0.01, alpha=1.6, max_iter=10000), False, {})
+    n = 2000
+    rng = np.random.default_rng(0)
+    P = sparse.diags([np.full(n, 2.0), np.full(n - 1, -0.7), np.full(n - 1, -0.7)],
+                     [0, 1, -1]).tocsc()
+    A = (sparse.eye(n) + sparse.diags([np.full(n - 2, 0.4)], [2], shape=(n, n))).tocsc()
+    q = rng.standard_normal(n)
+    x0 = rng.standard_normal(n)
+    s0 = rng.random(n) + 0.1
+    u = A @ x0 + s0
+    banded = ((P, q, A, u - 2 * s0, u), dict(eps_abs=1e-7, eps_rel=1e-7), True,
+              dict(parameters='matrices', embedded_algebra='sparse'))
+    return {'vectors (dense emitter)': vec, 'banded n=2000 (sparse emitter)': banded}
+
+
+def embedded_solve(folder, n, m, sparse_mode):
+    """Compile the emitted workspace.c and emosqp_solver.c with the system C
+    compiler into a shared library, call ``osqp_solve`` through ctypes and
+    read the workspace: ``(rc, status, iters, x, y, compile_s)``."""
+    import ctypes
+
+    t0 = time.perf_counter()
+    lib_path = Path(folder) / 'libemosqp.so'
+    proc = subprocess.run(['cc', '-O2', '-shared', '-fPIC', '-o', str(lib_path), 'workspace.c',
+                           'emosqp_solver.c', '-lm'], cwd=folder, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise AssertionError(f'cc failed on the emitted C:\n{proc.stdout}\n{proc.stderr}')
+    compile_s = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(lib_path))
+    F, m1 = ctypes.c_double, max(m, 1)
+    fields = [('x', F * n), ('z', F * m1), ('y', F * m1), ('delta_x', F * n),
+              ('delta_y', F * m1)] + ([('xt', F * n)] if sparse_mode else []) + [
+        ('pri_res', F), ('dua_res', F), ('run_time', F), ('status_val', ctypes.c_int),
+        ('iter', ctypes.c_int)]
+    work_t = type('Workspace', (ctypes.Structure,), {'_fields_': fields})
+    lib.osqp_solve.restype = ctypes.c_int
+    lib.osqp_solve.argtypes = []
+    rc = lib.osqp_solve()
+    work = work_t.in_dll(lib, 'work')
+    x = np.ctypeslib.as_array((F * n).in_dll(lib, 'sol_x')).copy()
+    y = np.ctypeslib.as_array((F * m1).in_dll(lib, 'sol_y'))[:m].copy()
+    return rc, work.status_val, work.iter, x, y, compile_s
+
+
+def emitter_case(name, prob, opts, sparse, gen_kw):
+    """``OSQP.codegen`` from a model on the card; the emitted C compiled and
+    solved through ctypes must end solved with x within 1e-4 of the live
+    solve's."""
+    import tempfile
+
+    from osqp_tpu_torch import OSQP
+
+    P, q, A, l, u = prob
+    o = OSQP(device=DEV, sparse=sparse)
+    o.setup(P=P, q=q, A=A, l=l, u=u, verbose=False, **opts)
+    live = o.solve(raise_error=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        o.codegen(tmp, extension_name=None, force_rewrite=True, **gen_kw)
+        gen_s = time.perf_counter() - t0
+        ws_mb = (Path(tmp) / 'workspace.c').stat().st_size / 1e6
+        rc, status, iters, x, y, compile_s = embedded_solve(
+            tmp, o.n, o.m, gen_kw.get('embedded_algebra') == 'sparse')
+    dx = float(np.abs(x - live.x).max())
+    if rc != 0 or status != 1 or live.info.status != 'solved' or not dx <= 1e-4:
+        raise AssertionError(f'emitted C ({name}): rc {rc}, status {status}, live '
+                             f'{live.info.status}, max |x - x_live| {dx}')
+    rec = dict(n=int(o.n), m=int(o.m), generate_s=gen_s, workspace_c_mb=ws_mb,
+               compile_s=compile_s, status=status, iters=iters, live_iters=live.info.iter,
+               max_abs_dx_vs_live=dx)
+    print(f'emitted C {name}:', json.dumps(rec), flush=True)
+    return rec
+
+
+def codegen_phase(exports):
+    """Phase 10's last part: the dense export case and the C emitter."""
+    dense_export_case(exports)
+    t0 = time.perf_counter()
+    for name, (prob, opts, sparse, gen_kw) in codegen_problems().items():
+        emitter_case(name, prob, opts, sparse, gen_kw)
+    exports.seconds += time.perf_counter() - t0
+    summary = dict(phase_s=exports.seconds, cases={
+        name: dict(export_s=r['export_s'], exported_wall_s=r['exported_wall_s'],
+                   live_cold_wall_s=r['live_cold_wall_s'], iters=r['iters'],
+                   launches={k: v for k, v in r['launches'].items() if v})
+        for name, r in exports.runs.items()})
+    print('codegen and export:', json.dumps(summary), flush=True)
+    return summary
+
+
 def main():
     import argparse
 
@@ -2229,8 +2491,10 @@ def main():
     mark('phase 5 (K2)')
 
     # 6. the sparse single-QP main path, with the launch counts read around it
+    # (the model is also exported right after its setup: phase 10)
+    exports = Exports()
     se.launches = dm.launches = 0
-    sp_run = sparse_main_path(torch.float32)
+    sp_run = sparse_main_path(torch.float32, export=exports)
     dia_launches = dm.launches
     if dia_launches <= 0:
         raise AssertionError('the sparse main path never launched the dia_matvec kernel')
@@ -2269,13 +2533,14 @@ def main():
     # paths' own operators and on ragged shapes
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     fam = {}
-    fam['ell'], o = family_path('ell', lambda: ell_family(ELL_N), ('ell', 'ell'), 'ell_matvec')
+    fam['ell'], o = family_path('ell', lambda: ell_family(ELL_N), ('ell', 'ell'), 'ell_matvec',
+                                export=exports)
     k3_rows = ell_rows(kind, o, flush)
     ladder_rows(o, 'ell')
     del o
     torch.cuda.empty_cache()
     fam['bsr'], o = family_path('bsr', lambda: clustered_family(CLUSTER_NSB, CLUSTER_NSB),
-                                ('bsr', 'bsr'), 'bsr_matvec')
+                                ('bsr', 'bsr'), 'bsr_matvec', export=exports)
     k4_rows = bsr_rows(kind, o, flush)
     ladder_rows(o, 'bsr')
     del o
@@ -2296,7 +2561,15 @@ def main():
     derivatives_card_vs_cpu()
     mark('phase 9 (card vs cpu)')
 
-    # 10. the kernels line and the result line
+    # 10. codegen and export: the exported programs of phases 6 and 8 (run
+    # there, right after each setup) and the dense direct one, then the C
+    # emitter compiled and solved on this machine
+    codegen_phase(exports)
+    mark('phase 10 (codegen and export)')
+    export_launches = {k: sum(r['launches'][k] for r in exports.runs.values())
+                       for k in ('dia_matvec', 'ell_matvec', 'bsr_matvec')}
+
+    # 11. the kernels line and the result line
     head = rows[0]
     dia_head = dia_rows[0]  # P @ v, float32, n = 2^20: the sparse path's widest operator
     modes = {}
@@ -2325,6 +2598,7 @@ def main():
         bound_by=dia_head['bound_by'], library_ms=dia_head['library_ms'],
         shape=f"{dia_head['case']} D={dia_head['D']} m={dia_head['m_out']} {dia_head['dtype']}",
         portfolio_launches=fam['portfolio']['launches']['dia_matvec'],
+        export_launches=export_launches['dia_matvec'],
     )]
     for name, rows_k, path, plain_of in (
             ('ell_matvec', k3_rows, 'ell', 'osqp_tpu/ops/spmv.py:240'),
@@ -2339,7 +2613,7 @@ def main():
             cold_l2_ms=head['cold_l2_ms'], plain_ms=head['plain_ms'],
             bound_ms=head['bound_ms'], bound_by=head['bound_by'],
             padded_bound_ms=head['padded_bound_ms'], library_ms=head['library_ms'],
-            ms_over_library=head['ms_over_library'],
+            ms_over_library=head['ms_over_library'], export_launches=export_launches[name],
             **{k: head[k] for k in ('lens_mean', 'lanes_per_row', 'nblk_mean') if k in head},
             shape=f"{head['case']} m={head['m']} n={head['n']} {head['dtype']} ({path} path)"))
     print(card_line)

@@ -61,7 +61,8 @@ def capabilities() -> int:
     return (CapabilitiesType.OSQP_CAPABILITY_DIRECT_SOLVER
             | CapabilitiesType.OSQP_CAPABILITY_INDIRECT_SOLVER
             | CapabilitiesType.OSQP_CAPABILITY_UPDATE_MATRICES
-            | CapabilitiesType.OSQP_CAPABILITY_DERIVATIVES)
+            | CapabilitiesType.OSQP_CAPABILITY_DERIVATIVES
+            | CapabilitiesType.OSQP_CAPABILITY_CODEGEN)
 
 
 def _poll_interrupt():

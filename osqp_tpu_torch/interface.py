@@ -2,11 +2,11 @@
 
 The port's own copy of ``osqp_tpu/interface.py``'s ``OSQP``: problem
 ingestion and validation, settings with their deprecation shims and aliases,
-the solve / update lifecycle and warm starts, and the adjoint and forward
-derivatives of the solution (``solver.derivatives``), over the single backend
+the solve / update lifecycle and warm starts, the adjoint and forward
+derivatives of the solution (``solver.derivatives``) and embedded code
+generation (``codegen``), over the single backend
 ``osqp_tpu_torch.backend.Solver``.  There is one backend, so there is no
-algebra registry.  Code generation is not ported yet and raises
-``NotImplementedError``.
+algebra registry.
 """
 
 from __future__ import annotations
@@ -88,8 +88,6 @@ _INFO_FIELDS = (
     'cg_iters',
     'host_syncs',
 )
-
-_LATER_CODEGEN = 'code generation is not ported yet (ROADMAP.md Queue 1: codegen)'
 
 
 class OSQPSettings(SimpleNamespace):
@@ -461,7 +459,47 @@ class OSQP:
         return derivatives.forward_derivative(x=results.x, y=results.y, dP=dP, dq=dq, dA=dA,
                                               dl=dl, du=du, **self._derivative_data())
 
-    # -- not ported yet ----------------------------------------------------
+    # -- codegen -----------------------------------------------------------
 
-    def codegen(self, *args, **kwargs):
-        raise NotImplementedError(_LATER_CODEGEN)
+    def codegen(
+        self,
+        folder,
+        parameters='vectors',
+        extension_name='emosqp',
+        force_rewrite=False,
+        use_float=False,
+        printing_enable=False,
+        profiling_enable=False,
+        interrupt_enable=False,
+        derivatives_enable=False,
+        include_codegen_src=True,
+        prefix='',
+        compile=False,
+        embedded_algebra='auto',
+    ):
+        """Generate an embedded C solver with the problem data baked in
+        (``codegen.driver.generate``); returns the folder.  The ``*_enable``
+        flags compile printing, profiling, the interrupt flag and the
+        derivatives define in or out of the emitted C.  The workspace is
+        exported in float64 whatever the working dtype."""
+        assert self.has_capability('OSQP_CAPABILITY_CODEGEN'), \
+            'This OSQP object does not support codegen'
+        assert parameters in ('vectors', 'matrices'), 'Unknown parameters specification'
+
+        from .codegen.driver import generate
+
+        return generate(
+            self,
+            folder,
+            parameters=parameters,
+            extension_name=extension_name,
+            force_rewrite=force_rewrite,
+            use_float=use_float,
+            prefix=prefix,
+            compile=compile,
+            printing_enable=printing_enable,
+            profiling_enable=profiling_enable,
+            interrupt_enable=interrupt_enable,
+            derivatives_enable=derivatives_enable,
+            embedded_algebra=embedded_algebra,
+        )

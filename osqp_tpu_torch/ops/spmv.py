@@ -39,6 +39,7 @@ from ..settings import np_dtype
 from .bsr_matvec import C as _BSR_C, R as _BSR_R, block_counts, bsr_matvec
 from .dia_matvec import dia_matvec
 from .ell_matvec import ell_matvec, lanes_log2, row_lens
+from .library import LibraryOperator
 
 DENSE_BUDGET_BYTES = 2_000_000_000
 FORMATS = ('auto', 'dia', 'bsr', 'dense', 'ell', 'bcoo')
@@ -412,8 +413,9 @@ def coo_from_scipy(S, dtype=torch.float32, device='cpu'):
 
 
 def is_structured(M) -> bool:
-    """True for the port's sparse operator classes (not for a dense tensor)."""
-    return isinstance(M, (DiaMatrix, EllMatrix, BsrMatrix, CooMatrix))
+    """True for the port's sparse operator classes, traced or eager (not for
+    a dense tensor)."""
+    return isinstance(M, (DiaMatrix, EllMatrix, BsrMatrix, CooMatrix, LibraryOperator))
 
 
 # ---------------------------------------------------------------------------

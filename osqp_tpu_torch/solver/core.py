@@ -209,10 +209,15 @@ def clip_rho(rho, dtype):
 
 def rho_vec_from_types(types, rho, rho_is_vec: bool, dtype: torch.dtype):
     """Per-constraint rho from the constraint types; ``rho`` is a host scalar,
-    taken at ``dtype`` as the JAX package's traced rho is."""
+    taken at ``dtype`` as the JAX package's traced rho is, or a 0-d tensor of
+    ``dtype`` (the traced loop's)."""
     f = np_dtype(dtype)
-    rho = clip_rho(rho, dtype)
-    vec = torch.full(types.shape, rho, dtype=dtype, device=types.device)
+    if isinstance(rho, torch.Tensor):
+        rho = torch.clamp(rho, f(RHO_MIN), f(RHO_MAX))
+        vec = rho.expand(types.shape).clone()
+    else:
+        rho = clip_rho(rho, dtype)
+        vec = torch.full(types.shape, rho, dtype=dtype, device=types.device)
     if not rho_is_vec:
         return vec
     return torch.where(
@@ -295,39 +300,54 @@ def pcg_solve(P, A, sigma, rho_vec, diag, b, x0, rel_tol, max_iter: int):
     ``lax.while_loop`` does; each test reads one value from the device.
     Returns ``(x, iters, host_syncs)``."""
 
-    def matvec(v):
-        Mv = P @ v + sigma * v
-        if A.shape[0]:
-            Mv = Mv + A.T @ (rho_vec * (A @ v))
-        return Mv
-
-    dinv = 1.0 / diag
-    b_norm = torch.sqrt(b @ b)
-    tol = torch.clamp(rel_tol * b_norm, min=torch.finfo(b.dtype).tiny)
-
-    x = x0
-    r = b - matvec(x0)
-    z = dinv * r
-    p = z
-    rz = r @ z
+    matvec = kkt_matvec(P, A, sigma, rho_vec)
+    dinv, tol, x, r, p, rz = pcg_start(matvec, diag, b, x0, rel_tol)
     k = 0
     syncs = 0
     while k < max_iter:
         syncs += 1
         if not bool(torch.sqrt(r @ r) > tol):
             break
-        Mp = matvec(p)
-        denom = p @ Mp
-        alpha = rz / torch.where(denom != 0, denom, 1.0)
-        x = x + alpha * p
-        r = r - alpha * Mp
-        z = dinv * r
-        rz_new = r @ z
-        beta = rz_new / torch.where(rz != 0, rz, 1.0)
-        p = z + beta * p
-        rz = rz_new
+        x, r, p, rz = pcg_step(matvec, dinv, x, r, p, rz)
         k += 1
     return x, k, syncs
+
+
+def kkt_matvec(P, A, sigma, rho_vec):
+    """``v -> M(rho) v = P v + sigma v + A' (rho * (A v))``, matvecs only."""
+
+    def matvec(v):
+        Mv = P @ v + sigma * v
+        if A.shape[0]:
+            Mv = Mv + A.T @ (rho_vec * (A @ v))
+        return Mv
+
+    return matvec
+
+
+def pcg_start(matvec, diag, b, x0, rel_tol):
+    """PCG's start from ``x0``: ``(dinv, tol, x, r, p, rz)``, with the stop
+    tolerance ``max(rel_tol * ||b||_2, tiny)``."""
+    dinv = 1.0 / diag
+    b_norm = torch.sqrt(b @ b)
+    tol = torch.clamp(rel_tol * b_norm, min=torch.finfo(b.dtype).tiny)
+    r = b - matvec(x0)
+    z = dinv * r
+    return dinv, tol, x0, r, z, r @ z
+
+
+def pcg_step(matvec, dinv, x, r, p, rz):
+    """One PCG step: ``(x, r, p, rz)`` after it."""
+    Mp = matvec(p)
+    denom = p @ Mp
+    alpha = rz / torch.where(denom != 0, denom, 1.0)
+    x = x + alpha * p
+    r = r - alpha * Mp
+    z = dinv * r
+    rz_new = r @ z
+    beta = rz_new / torch.where(rz != 0, rz, 1.0)
+    p = z + beta * p
+    return x, r, p, rz_new
 
 
 # ---------------------------------------------------------------------------
@@ -477,7 +497,7 @@ def termination_status(data: QPData, scal: Scaling, x, z, y, delta_x, delta_y,
     solved_code = _SOLVED_INACC if approximate else _SOLVED
     pinf_code = _PRIM_INF_INACC if approximate else _PRIM_INF
     dinf_code = _DUAL_INF_INACC if approximate else _DUAL_INF
-    un = torch.tensor(_UNSOLVED, dtype=torch.int32, device=x.device)
+    un = torch.full((), _UNSOLVED, dtype=torch.int32, device=x.device)
     status = torch.where(
         noncvx, _NON_CVX,
         torch.where(pri_check & dua_check & gap_ok, solved_code,
@@ -548,19 +568,8 @@ def admm_iteration(data: QPData, settings: CoreSettings, st: LoopState, indirect
     tensor in place.  The chunked solve relies on this: a KeyboardInterrupt
     that lands mid-chunk leaves the previous chunk's iterates, which this
     chunk started from, intact."""
-    m = data.A.shape[0]
-    x_prev, z_prev, y = st.x, st.z, st.y
     rho_vec, rho_inv = st.rho.rho_vec, st.rho.rho_inv_vec
-
-    # KKT rhs, reduced to the normal-equations rhs:
-    #   b1 = sigma x - q ; b2 = z - y/rho ;  rhs = b1 + A' diag(rho) b2
-    b1 = settings.sigma * x_prev - data.q
-    if m:
-        b2 = z_prev - rho_inv * y
-        rhs = b1 + data.A.T @ (rho_vec * b2)
-    else:
-        rhs = b1
-
+    rhs, b2 = kkt_rhs(data, settings, st.x, st.z, st.y, rho_vec, rho_inv)
     if indirect:
         x_tilde, k, syncs = pcg_solve(data.P, data.A, settings.sigma, rho_vec, st.factor.diag,
                                       rhs, st.xtld, st.cg_tol, settings.cg_max_iter)
@@ -568,23 +577,39 @@ def admm_iteration(data: QPData, settings: CoreSettings, st: LoopState, indirect
         st.host_syncs += syncs
     else:
         x_tilde = _cho_solve(st.factor.L, rhs)
+    x, z, y, delta_y = admm_update(data, settings, st.x, st.z, st.y, st.delta_y, x_tilde, b2,
+                                   rho_vec, rho_inv)
+    st.delta_x = x - st.x
+    st.x, st.z, st.y, st.xtld, st.delta_y = x, z, y, x_tilde, delta_y
 
+
+def kkt_rhs(data: QPData, settings: CoreSettings, x, z, y, rho_vec, rho_inv):
+    """The KKT right-hand side reduced to the normal equations:
+    ``b1 = sigma x - q``, ``b2 = z - y / rho``, ``rhs = b1 + A' diag(rho) b2``.
+    Returns ``(rhs, b2)`` (``b2`` None when m = 0)."""
+    b1 = settings.sigma * x - data.q
+    if not data.A.shape[0]:
+        return b1, None
+    b2 = z - rho_inv * y
+    return b1 + data.A.T @ (rho_vec * b2), b2
+
+
+def admm_update(data: QPData, settings: CoreSettings, x_prev, z_prev, y, delta_y, x_tilde, b2,
+                rho_vec, rho_inv):
+    """The ADMM step after the KKT solve: relaxation, the projection onto
+    [l, u] and the dual update.  Returns ``(x, z, y, delta_y)``; with m = 0,
+    z and ``delta_y`` come back as given."""
     alpha = settings.alpha
     one_m_alpha = type(alpha)(1) - alpha
     x = alpha * x_tilde + one_m_alpha * x_prev
-    if m:
-        nu = rho_vec * (data.A @ x_tilde - b2)
-        z_tilde = z_prev + rho_inv * (nu - y)
-        z_relax = alpha * z_tilde + one_m_alpha * z_prev
-        z = torch.clamp(z_relax + rho_inv * y, data.l, data.u)
-        delta_y = rho_vec * (z_relax - z)
-        y = y + delta_y
-    else:
-        z = z_prev
-        delta_y = st.delta_y
-    st.x, st.z, st.y, st.xtld = x, z, y, x_tilde
-    st.delta_x = x - x_prev
-    st.delta_y = delta_y
+    if not data.A.shape[0]:
+        return x, z_prev, y, delta_y
+    nu = rho_vec * (data.A @ x_tilde - b2)
+    z_tilde = z_prev + rho_inv * (nu - y)
+    z_relax = alpha * z_tilde + one_m_alpha * z_prev
+    z = torch.clamp(z_relax + rho_inv * y, data.l, data.u)
+    delta_y = rho_vec * (z_relax - z)
+    return x, z, y + delta_y, delta_y
 
 
 def rho_estimate_fn(data: QPData, x, z, y, rho):

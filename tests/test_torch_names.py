@@ -2,6 +2,7 @@
 package's: code written for ``osqp_tpu`` finds the same names in
 ``osqp_tpu_torch`` with the same values."""
 
+import inspect
 import math
 
 import pytest
@@ -83,3 +84,17 @@ def test_batched_and_layer_names_match_jax_package(module, name):
     assert callable(got) and callable(want)
     if name == 'QPLayerResult':
         assert got._fields == want._fields
+
+
+def test_capabilities_match_jax_package():
+    """``backend.capabilities()`` and ``OSQP.capabilities``: direct,
+    indirect, matrix updates, derivatives and code generation, as the JAX
+    backend reports them."""
+    from osqp_tpu.backends import jax_backend
+    from osqp_tpu_torch import backend
+
+    assert int(backend.capabilities()) == int(jax_backend.capabilities())
+    assert osqp_tpu_torch.OSQP(device='cpu').has_capability('OSQP_CAPABILITY_CODEGEN')
+    got = inspect.signature(osqp_tpu_torch.OSQP.codegen)
+    want = inspect.signature(osqp_tpu.OSQP.codegen)
+    assert got == want

@@ -220,10 +220,10 @@ def test_no_device_without_cuda_raises(monkeypatch):
 
 def test_unported_settings_raise():
     """Polishing, a time limit and verbose printing are accepted at setup and
-    through update_settings; code generation still raises
-    NotImplementedError, the derivative API (ported since) a ValueError
-    before its adjoint is computed, and a wrong-length update
-    OSQPException."""
+    through update_settings; code generation (ported since) raises an
+    AssertionError on an unknown ``parameters``, the derivative API (ported
+    since) a ValueError before its adjoint is computed, and a wrong-length
+    update OSQPException."""
     P, q, A, l, u = problems.basic_qp()
     for opt in (dict(polishing=True), dict(time_limit=1.0), dict(verbose=True)):
         s = osqp_tpu_torch.OSQP(device='cpu')
@@ -233,8 +233,8 @@ def test_unported_settings_raise():
     s.setup(P=P, q=q, A=A, l=l, u=u, verbose=False)
     s.update_settings(polishing=True, time_limit=1.0)
     assert s.solve(raise_error=True).info.status_polish == 1
-    with pytest.raises(NotImplementedError, match='codegen'):
-        s.codegen('out')
+    with pytest.raises(AssertionError, match='Unknown parameters'):
+        s.codegen('out', parameters='all')
     with pytest.raises(ValueError, match='adjoint_derivative_compute first'):
         s.adjoint_derivative_get_vec()
     with pytest.raises(OSQPException):
