@@ -82,7 +82,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8. three more single-QP paths, each OSQP(sparse=True) in float64 at eps
    1e-3 with the format ladder on auto: setup, a cold solve and two warm
    update(q) steps (the Portfolio path, whose every solve runs to max_iter,
-   its cold solve only), with every kernel's launch count set to 0 just before
+   its cold solve only, cut to 300 iterations and its profile to 50), with
+   every kernel's launch count set to 0 just before
    and read just after, then a profile of one more warm step.  The ELL
    family (an even-row random graph QP, n = 2^20: both operators ELL, K3),
    the BSR family (tests/test_spmv.py's clustered QP at nsb = 1024,
@@ -119,8 +120,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    emosqp_solver.c compiled with the system C compiler into a shared
    library, osqp_solve called through ctypes: solved, x within 1e-4 of the
    live solve's;
-11. a JSON line with each kernel's numbers (with its launches inside the
-   exported programs), then the result line {"ok": true, "device": {...}}.
+11. the multi-device package (osqp_tpu_torch.parallel) on a mesh of 4 shards
+   (round robin over the cards: all on cuda:0 on a one-card machine), its
+   devices printed: the banded family of phase 6 at n = 2^20 in f64, eps
+   1e-3, through banded_qp_setup, a cold banded_qp_solve and a 3-step
+   banded_mpc_rollout (phase 6's q * 1.01^k, warm from the cold solve),
+   every step solved and passing the f64 host termination test, K2 (the
+   local products on each shard's halo window) launched; the same problem
+   through big_qp_setup and big_qp_solve (row blocks on cuSPARSE): solved,
+   the host test, banded's iteration count and x within 1e-8; a profile of
+   one warm solve of each; K2 on an interior shard's halo window
+   (L = 2^18, on that shard's device) for P, A and A' in f32 and f64, bit
+   for bit against its plain version, P's with device times (L2 warm and
+   flushed) and the byte bound; banded and bigqp at n = 4096 and
+   dp_mp_solve at (2, 2), B = 8, f64, on the card against the CPU (statuses, iterations and rho updates
+   equal, x within 1e-9); dp_mp_solve on a (2, 2) mesh at B = 4096, n = 32,
+   m = 48 (phase 4b's plant family), f64, eps 1e-3: every instance solved,
+   the f64 host check, 64 instances near the port's f64 CPU optimum,
+   solves/s.  Wall time, CG steps and host syncs of each solve;
+12. a JSON line with each kernel's numbers (with its launches inside the
+   exported programs and on the distributed banded path), then the result
+   line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  It needs the repository's
 ``osqp_tpu_torch`` beside it and a CUDA device.
@@ -1031,16 +1051,16 @@ def dia_bound_ms(D, m_out, n_in, itemsize, peak_flops, peak_bytes):
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops > t_bytes else 'bytes')
 
 
-def _csr(S, dtype):
+def _csr(S, dtype, device=DEV):
     """The same matrix as a torch CSR tensor on the card (cuSPARSE SpMV)."""
     S = S.tocsr()
     S.sort_indices()
     with warnings.catch_warnings():  # "sparse CSR support is in beta"
         warnings.simplefilter('ignore', UserWarning)
         return torch.sparse_csr_tensor(
-            torch.as_tensor(S.indptr, dtype=torch.int64, device=DEV),
-            torch.as_tensor(S.indices, dtype=torch.int64, device=DEV),
-            torch.as_tensor(S.data, dtype=dtype, device=DEV), size=S.shape,
+            torch.as_tensor(S.indptr, dtype=torch.int64, device=device),
+            torch.as_tensor(S.indices, dtype=torch.int64, device=device),
+            torch.as_tensor(S.data, dtype=dtype, device=device), size=S.shape,
             check_invariants=False)
 
 
@@ -1577,6 +1597,7 @@ def verbose_path(sp_run, max_iter=600):
 # ---------------------------------------------------------------------------
 
 FAMILY_WARM = 2
+PORTFOLIO_MAX_ITER = 300  # the Portfolio cold solve's cut (its default is 4000)
 ELL_N = 1 << 20
 CLUSTER_NSB = 1024
 PORTFOLIO_N, PORTFOLIO_K = 100_000, 1_000
@@ -1723,7 +1744,7 @@ def profile_family(o, q):
 
 
 def family_path(name, build, expect, kernel, solved=True, profile_iters=None, warm=FAMILY_WARM,
-                export=None):
+                export=None, max_iter=None):
     """osqp_tpu_torch.OSQP(sparse=True) on the card in float64, eps 1e-3, the
     format ladder on auto and every other setting at its default: setup, a
     cold solve and ``warm`` warm update(q * 1.01^k) steps, with every
@@ -1738,7 +1759,8 @@ def family_path(name, build, expect, kernel, solved=True, profile_iters=None, wa
     reported.  Then a profile of one more warm step, cut to
     ``profile_iters`` iterations when given.  With ``export`` (an
     ``Exports``), the model is exported right after its setup, before its
-    first solve (phase 10), with the launch counts kept apart.
+    first solve (phase 10), with the launch counts kept apart.  ``max_iter``
+    cuts the solves' iteration limit (default 4000).
     Returns the summary and the solver."""
     from osqp_tpu_torch import OSQP
 
@@ -1751,7 +1773,8 @@ def family_path(name, build, expect, kernel, solved=True, profile_iters=None, wa
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     o = OSQP(device=DEV, sparse=True)
-    o.setup(P=P, q=q, A=A, l=l, u=u, eps_abs=EPS, eps_rel=EPS, polishing=False, verbose=False)
+    o.setup(P=P, q=q, A=A, l=l, u=u, eps_abs=EPS, eps_rel=EPS, polishing=False, verbose=False,
+            **({} if max_iter is None else dict(max_iter=max_iter)))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     if export is not None:
@@ -1781,6 +1804,7 @@ def family_path(name, build, expect, kernel, solved=True, profile_iters=None, wa
               for qk, r in zip(qs, results)]
     summary = dict(
         family=name, n=P.shape[0], m=A.shape[0], nnz_P=int(P.nnz), nnz_A=int(A.nnz),
+        max_iter=max_iter or 4000,
         dtype='float64', eps=EPS, formats=list(fmts), generate_s=gen_s, setup_s=setup_s,
         cold_solve_s=times[0], warm_solve_s=times[1:], statuses=statuses,
         admm_iters=[r.info.iter for r in results], cg_steps=[r.info.cg_iters for r in results],
@@ -2409,6 +2433,245 @@ def codegen_phase(exports):
     return summary
 
 
+
+# ---------------------------------------------------------------------------
+# 11. the multi-device package: a mesh of shards on the card(s)
+# ---------------------------------------------------------------------------
+
+PAR_J = 4            # shards of the huge-QP meshes
+PAR_CG_CAP = 1000    # cg_max_iter of the card runs (the default is max(2n, 100))
+PAR_CHECK_N = 4096   # card against CPU
+DPMP = (4096, 32, 48)
+DPMP_CHECK_B = 8
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _solve_row(res, wall_s):
+    return dict(status=res.status, iters=res.iters, rho_updates=res.rho_updates,
+                cg_steps=res.cg_iters, cg_cap_hits=res.cg_cap_hits, host_syncs=res.host_syncs,
+                wall_s=wall_s)
+
+
+def halo_k2_rows(card, mesh, data):
+    """K2 on shard 1's halo window of the banded path (an interior shard:
+    both halos are a neighbour's), at the path's own (L + 2W,) window and
+    shifted offsets, on shard 1's device: P's, A's and A''s bands in f32 and
+    f64 bit for bit against the plain version; for P's (the widest) the
+    kernel's device time with the L2 warm (back to back, as the path calls
+    it) and with the L2 flushed (the time the byte bound applies to), the
+    plain version's and cuSPARSE's, one row a dtype."""
+    import scipy.sparse as sparse
+    from osqp_tpu_torch.ops import dia_matvec as dm
+
+    f32_peak, f64_peak, mem_peak, _ = peaks(card)
+    J, L = data.q.shape
+    W = max(1, max(abs(o) for offs in (data.offsets_p, data.offsets_a, data.offsets_at)
+                   for o in offs))
+    dev = mesh.device_list[1]
+    v = torch.as_tensor(np.random.default_rng(5).standard_normal((J, L)), device=DEV)
+    # writing 64 MB evicts the 50 MB L2 before each cold call, as in phase 5
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        wins = mesh.halo_window(mesh.split(v.to(dtype), ('mp',)).map(lambda t: t[0]), W)
+        for label, bands_all, offsets in (('P', data.p_bands, data.offsets_p),
+                                          ('A', data.a_bands, data.offsets_a),
+                                          ("A'", data.at_bands, data.offsets_at)):
+            bands = bands_all[1].to(dev, dtype).contiguous()
+            off = torch.tensor([W + o for o in offsets], dtype=torch.int32, device=dev)
+            win = wins[1]
+            got = dm.dia_matvec(bands, off, win)
+            want = dm.dia_matvec_plain(bands, off, win)
+            if not torch.equal(got, want):
+                raise AssertionError(f'K2 on the halo window ({label}, {dtype}) differs from its '
+                                     f'plain version by {float((got - want).abs().max())}')
+            if label != 'P':
+                continue
+            kern = lambda: dm.dia_matvec(bands, off, win)  # noqa: E731
+            b = bands.cpu().numpy()
+            r = np.arange(L)
+            S = sparse.coo_matrix((b.reshape(-1), (np.tile(r, len(offsets)), np.concatenate(
+                [r + W + o for o in offsets]))), shape=(L, L + 2 * W))
+            csr = _csr(S, dtype, dev)
+            item = torch.empty((), dtype=dtype).element_size()
+            bound, by = dia_bound_ms(len(offsets), L, L + 2 * W, item,
+                                     f32_peak if dtype == torch.float32 else f64_peak, mem_peak)
+            ms = device_ms(kern, 50, name='dia_matvec_kernel')
+            cold_ms = device_ms(kern, 20, name='dia_matvec_kernel', flush=flush.zero_)
+            row = dict(case=f'{label} on the halo window', dtype=str(dtype).replace('torch.', ''),
+                       device=str(dev), D=len(offsets), m_out=L, n_in=L + 2 * W, W=W,
+                       bit_identical=['P', 'A', "A'"],
+                       max_abs_err=0.0, ms=ms, cold_l2_ms=cold_ms,
+                       plain_ms=device_ms(lambda: dm.dia_matvec_plain(bands, off, win), 50),
+                       library_ms=device_ms(lambda: csr @ win, 50), bound_ms=bound, bound_by=by,
+                       bound_share_cold_l2=bound / cold_ms)
+            print('K2 on the banded halo window:', json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
+def parallel_card_vs_cpu():
+    """banded and bigqp at n = 4096 on J = 4 shards (eps 1e-4), and
+    dp_mp_solve at (2, 2) with B = 8 (eps 1e-5), f64, on the card against
+    the CPU: the same statuses and iterations (rho updates too), x within
+    1e-9."""
+    from osqp_tpu_torch import parallel as par
+
+    out = {}
+    P, q, A, l, u = banded_qp(PAR_CHECK_N, seed=1)
+    kw = dict(eps_abs=1e-4, eps_rel=1e-4, cg_max_iter=PAR_CG_CAP)
+    for name, setup, solve in (('banded', par.banded_qp_setup, par.banded_qp_solve),
+                               ('bigqp', par.big_qp_setup, par.big_qp_solve)):
+        got, want = (solve(par.make_mesh((PAR_J,), ('mp',), device=dev),
+                           setup(P, q, A, l, u, PAR_J, device=dev), **kw)
+                     for dev in (DEV, 'cpu'))
+        dx = float((got.x.cpu() - want.x).abs().max())
+        if (got.status, got.iters, got.rho_updates) != (want.status, want.iters,
+                                                        want.rho_updates) or not dx <= 1e-9:
+            raise AssertionError(f'{name} card vs cpu: {got.status, got.iters, got.rho_updates} '
+                                 f'vs {want.status, want.iters, want.rho_updates}, dx {dx}')
+        out[name] = dict(n=PAR_CHECK_N, status=got.status, iters=got.iters,
+                         cg_card=got.cg_iters, cg_cpu=want.cg_iters, x_diff=dx)
+    P, q, A, l, u = build_vmap_problems(DPMP_CHECK_B, DPMP[1], DPMP[2], seed=0)
+    got, want = (par.dp_mp_solve(par.make_mesh((2, 2), ('dp', 'mp'), device=dev), P, q, A, l, u,
+                                 eps_abs=1e-5, eps_rel=1e-5) for dev in (DEV, 'cpu'))
+    dx = float((got.x.cpu() - want.x).abs().max())
+    for name in ('status', 'iters', 'rho_updates'):
+        if not torch.equal(getattr(got, name).cpu(), getattr(want, name)):
+            raise AssertionError(f'dp_mp card vs cpu: {name} {getattr(got, name).tolist()} vs '
+                                 f'{getattr(want, name).tolist()}')
+    if not dx <= 1e-9:
+        raise AssertionError(f'dp_mp card vs cpu: x differs by {dx}')
+    out['dp_mp'] = dict(B=DPMP_CHECK_B, iters=got.iters.tolist(), x_diff=dx)
+    return out
+
+
+def dpmp_path():
+    """dp_mp_solve at full size on a (2, 2) mesh: phase 4b's per-instance
+    plant family (build_vmap_problems, seed 0) at B = 4096, n = 32, m = 48,
+    f64, eps 1e-3.  Every instance solved, the f64 host check of every
+    instance, 64 instances near the port's f64 CPU optimum."""
+    from types import SimpleNamespace
+
+    from osqp_tpu_torch import parallel as par
+
+    B, n, m = DPMP
+    P, q, A, l, u = build_vmap_problems(B, n, m, seed=0)
+    mesh = par.make_mesh((2, 2), ('dp', 'mp'))
+    res, wall = _timed(lambda: par.dp_mp_solve(mesh, P, q, A, l, u, eps_abs=EPS, eps_rel=EPS))
+    status = res.status.cpu().numpy()
+    if not (status == 1).all():
+        raise AssertionError(f'dp_mp: {int((status != 1).sum())} of {B} instances not solved')
+    r = SimpleNamespace(x=res.x.cpu().numpy(), y=res.y.cpu().numpy(),
+                        info=SimpleNamespace(status_val=status))
+    run = dict(results=[r], P=P, A=A, l=l, u=u, q=q, kw=dict(eps_abs=EPS), noise=None)
+    iters = res.iters.cpu().numpy()
+    # the first two epochs again under the profiler
+    _, prof_ms, kernels = _profiled(lambda: par.dp_mp_solve(mesh, P, q, A, l, u, eps_abs=EPS,
+                                                             eps_rel=EPS, max_iter=50))
+    return dict(B=B, n=n, m=m, dtype='float64', eps=EPS, mesh=mesh.shape, wall_s=wall,
+                profile_50_iterations=_profile_numbers(prof_ms, kernels),
+                solves_per_s=B / wall, mean_iters=float(iters.mean()), max_iters=int(iters.max()),
+                rho_updates=int(res.rho_updates.sum()), host_syncs=res.host_syncs,
+                residual_over_bound=residual_check(run), x_off_f64_optimum=reference_check(run))
+
+
+def parallel_phase(card):
+    """Phase 11.  Returns (summary, K2 rows on the halo window, K2's launches
+    on the distributed banded path)."""
+    from osqp_tpu_torch import parallel as par
+    from osqp_tpu_torch.ops import dia_matvec as dm
+
+    t_phase = time.perf_counter()
+    mesh = par.make_mesh((PAR_J,), ('mp',))
+    devs = [str(d) for d in mesh.device_list]
+    print('mesh:', json.dumps(dict(shape=mesh.shape, devices=devs, distinct=len(set(devs)))),
+          flush=True)
+    n = SPARSE_N
+    P, q, A, l, u = banded_qp(n, seed=0)
+    kw = dict(eps_abs=EPS, eps_rel=EPS, cg_max_iter=PAR_CG_CAP)
+
+    # banded: setup, a cold solve and a 3-step warm rollout (phase 6's
+    # q * 1.01^k) from the cold solve's scaled iterates, K2 counted around
+    # the solves
+    bd, banded_setup_s = _timed(lambda: par.banded_qp_setup(P, q, A, l, u, PAR_J))
+    dm.launches = 0
+    cold, cold_s = _timed(lambda: par.banded_qp_solve(mesh, bd, **kw))
+    q_seq = np.stack([q * 1.01 ** k for k in range(1, SPARSE_WARM + 1)])
+    Dinv, Einv = bd.Dinv.reshape(-1)[:n], bd.Einv.reshape(-1)[:n]
+    roll, roll_s = _timed(lambda: par.banded_mpc_rollout(
+        mesh, bd, q_seq, x0=cold.x * Dinv, z0=cold.z, y0=cold.y * bd.c * Einv, **kw))
+    banded_launches = dm.launches
+    if banded_launches <= 0:
+        raise AssertionError('the distributed banded path never launched the dia_matvec kernel')
+    statuses = [cold.status] + roll.status.tolist()
+    if any(st != 1 for st in statuses):
+        raise AssertionError(f'banded path statuses {statuses}')
+    ratios = [sparse_residual_check(P, A, l, u, qk, x.cpu().numpy(), y.cpu().numpy(), EPS)
+              for qk, x, y in zip([q, *q_seq], [cold.x, *roll.x], [cold.y, *roll.y])]
+    banded = dict(n=n, J=PAR_J, L=bd.L, dtype='float64', eps=EPS, setup_s=banded_setup_s,
+                  cold=_solve_row(cold, cold_s), rollout_s=roll_s,
+                  rollout_iters=roll.iters.tolist(), rollout_cg_steps=list(roll.cg_iters),
+                  rollout_host_syncs=list(roll.host_syncs), k2_launches=banded_launches,
+                  residual_over_bound=ratios)
+    print('banded (J = 4, n = 2^20):', json.dumps(banded), flush=True)
+
+    # bigqp: the same problem, a cold solve: banded's iterations, x within 1e-8
+    gd, big_setup_s = _timed(lambda: par.big_qp_setup(P, q, A, l, u, PAR_J))
+    big, big_s = _timed(lambda: par.big_qp_solve(mesh, gd, **kw))
+    if big.status != 1:
+        raise AssertionError(f'bigqp status {big.status}')
+    dx = float((big.x - cold.x).abs().max())
+    tol = 1e-8 + 1e-8 * float(cold.x.abs().max())
+    if big.iters != cold.iters or not dx <= tol:
+        raise AssertionError(f'bigqp {big.iters} iterations vs banded {cold.iters}, x differs by '
+                             f'{dx} (tolerance {tol})')
+    bigqp = dict(n=n, J=PAR_J, setup_s=big_setup_s, cold=_solve_row(big, big_s),
+                 x_diff_vs_banded=dx, residual_over_bound=sparse_residual_check(
+                     P, A, l, u, q, big.x.cpu().numpy(), big.y.cpu().numpy(), EPS))
+    print('bigqp (J = 4, n = 2^20):', json.dumps(bigqp), flush=True)
+
+    # one warm solve of each under the profiler: banded from the rollout's
+    # carries on its last q, bigqp from its own solution
+    def banded_warm():
+        warm = par.banded_qp_update_vec(bd, q=q_seq[-1])
+        return par.banded_qp_solve(mesh, warm, x0=roll.x_carry, z0=roll.z_carry,
+                                   y0=roll.y_carry, **kw)
+
+    def bigqp_warm():
+        return par.big_qp_solve(mesh, gd, x0=big.x * gd.Dinv, z0=big.z,
+                                y0=big.y * gd.c * gd.Einv.reshape(-1)[:n], **kw)
+
+    for name, fn in (('banded', banded_warm), ('bigqp', bigqp_warm)):
+        res, wall_ms, kernels = _profiled(fn)
+        prof = dict(iters=res.iters, cg_steps=res.cg_iters, host_syncs=res.host_syncs,
+                    wall_ms_per_cg_step=wall_ms / max(res.cg_iters, 1),
+                    **_profile_numbers(wall_ms, kernels))
+        print(f'{name} warm solve profile:', json.dumps(prof), flush=True)
+        (banded if name == 'banded' else bigqp)['warm_profile'] = prof
+    del gd, big
+
+    k2_rows = halo_k2_rows(card, mesh, bd)
+    del bd, roll
+    torch.cuda.empty_cache()
+    versus = parallel_card_vs_cpu()
+    print('parallel card vs cpu:', json.dumps(versus), flush=True)
+    dpmp = dpmp_path()
+    print('dp_mp (2 x 2, B = 4096):', json.dumps(dpmp), flush=True)
+    summary = dict(phase_s=time.perf_counter() - t_phase, devices=devs,
+                   distinct_devices=len(set(devs)), banded=banded, bigqp=bigqp,
+                   card_vs_cpu=versus, dp_mp=dpmp)
+    print(f'multi-device phase: {summary["phase_s"]:.1f} s', flush=True)
+    return summary, k2_rows, banded_launches
+
+
 def main():
     import argparse
 
@@ -2545,11 +2808,12 @@ def main():
     ladder_rows(o, 'bsr')
     del o
     torch.cuda.empty_cache()
-    # the Portfolio path runs its cold solve only: each solve takes about 64 s
-    # at max_iter, and the run has to stay inside half its time limit
+    # the Portfolio path runs its cold solve only, cut to PORTFOLIO_MAX_ITER
+    # iterations: a solve takes about 64 s at the default 4000, and the run
+    # has to stay inside half its time limit
     fam['portfolio'], o = family_path(
         'portfolio', lambda: portfolio_family(PORTFOLIO_N, PORTFOLIO_K), ('dia', 'bcoo'),
-        'dia_matvec', solved=False, profile_iters=200, warm=0)
+        'dia_matvec', solved=False, profile_iters=50, warm=0, max_iter=PORTFOLIO_MAX_ITER)
     ladder_rows(o, 'portfolio')
     del o
     torch.cuda.empty_cache()
@@ -2569,7 +2833,12 @@ def main():
     export_launches = {k: sum(r['launches'][k] for r in exports.runs.values())
                        for k in ('dia_matvec', 'ell_matvec', 'bsr_matvec')}
 
-    # 11. the kernels line and the result line
+    # 11. the multi-device package: banded (K2 on every shard's halo
+    # window), bigqp and dp_mp on shards of the card(s)
+    _, halo_rows, banded_launches = parallel_phase(kind)
+    mark('phase 11 (multi-device)')
+
+    # 12. the kernels line and the result line
     head = rows[0]
     dia_head = dia_rows[0]  # P @ v, float32, n = 2^20: the sparse path's widest operator
     modes = {}
@@ -2598,7 +2867,10 @@ def main():
         bound_by=dia_head['bound_by'], library_ms=dia_head['library_ms'],
         shape=f"{dia_head['case']} D={dia_head['D']} m={dia_head['m_out']} {dia_head['dtype']}",
         portfolio_launches=fam['portfolio']['launches']['dia_matvec'],
-        export_launches=export_launches['dia_matvec'],
+        export_launches=export_launches['dia_matvec'], banded_launches=banded_launches,
+        banded_window_ms={f"{r['case'].split()[0]} {r['dtype']}": r['ms'] for r in halo_rows},
+        banded_window_cold_l2_ms={f"{r['case'].split()[0]} {r['dtype']}": r['cold_l2_ms']
+                                  for r in halo_rows},
     )]
     for name, rows_k, path, plain_of in (
             ('ell_matvec', k3_rows, 'ell', 'osqp_tpu/ops/spmv.py:240'),

@@ -1,8 +1,9 @@
 """Carry the JAX package's setup state into the port.
 
 ``from_jax_setup`` (the shared batched engine), ``from_jax_batch`` (the vmap
-batched engine) and ``from_jax_solver`` (the single-QP ``Solver``) take numpy
-arrays, never JAX arrays, so this module
+batched engine), ``from_jax_solver`` (the single-QP ``Solver``) and
+``from_jax_bigqp`` / ``from_jax_banded`` (the distributed huge-QP modes) take
+numpy arrays, never JAX arrays, so this module
 (like the rest of the port) imports nothing of JAX.  With them a test starts
 both loops from identical state and holds the loop apart from setup.
 """
@@ -130,3 +131,36 @@ def from_jax_batch(arrays, device, dtype):
                         constr_type=torch.tensor(np.asarray(types, np.int8), device=device)),
             cb.Factor(L=opt(L), diag=t(diag), Minv=opt(Minv)),
             cb.Iterates(*(t(v) for v in iterates)))
+
+
+def _from_jax_fields(cls, arrays, device, dtype):
+    f = np_dtype(dtype)
+    device = torch.device(device)
+    ints = {'pidx': np.int32, 'aidx': np.int32, 'types': np.int8}
+    out = {}
+    for name in cls._fields:
+        v = arrays[name]
+        if isinstance(v, (int, float, bool, tuple)):
+            out[name] = type(v)(v) if not isinstance(v, tuple) else tuple(int(o) for o in v)
+        else:
+            out[name] = torch.tensor(np.asarray(v, dtype=ints.get(name, f)), device=device)
+    return cls(**out)
+
+
+def from_jax_bigqp(arrays, device, dtype):
+    """Port ``parallel.BigQPData`` from ``osqp_tpu.parallel.big_qp_setup``'s
+    ``BigQPData``, given as a mapping of its fields to numpy arrays (and its
+    ints, floats and flags as they are): ``data._asdict()`` with each array
+    through ``np.asarray``.  Tensors land on ``device`` at ``dtype``."""
+    from .parallel.bigqp import BigQPData
+
+    return _from_jax_fields(BigQPData, arrays, device, dtype)
+
+
+def from_jax_banded(arrays, device, dtype):
+    """Port ``parallel.BandedQPData`` from ``osqp_tpu.parallel.
+    banded_qp_setup``'s ``BandedQPData``, as ``from_jax_bigqp`` takes it (the
+    offsets as tuples of ints)."""
+    from .parallel.banded import BandedQPData
+
+    return _from_jax_fields(BandedQPData, arrays, device, dtype)

@@ -292,28 +292,31 @@ def _pad_diag(d, m):
 
 
 def _bsr_arrays(S, dtype, R=_BSR_R, C=_BSR_C):
-    """Host-side block-ELL packing of a scipy sparse matrix."""
-    Coo = S.tocoo()
-    Coo.sum_duplicates()
-    m, n = Coo.shape
+    """Host-side block-ELL packing of a scipy sparse matrix: the JAX
+    package's arrays (a block for every (R, C) tile holding a stored entry,
+    explicit zeros included, in ascending block-column order within its
+    block-row; duplicates summed), built through scipy's CSR-to-BSR
+    conversion instead of a sort of every entry's block id."""
+    Csr = sp.csr_matrix(S, copy=True)
+    Csr.sum_duplicates()
+    m, n = Csr.shape
     nbr, nbc = -(-m // R), -(-n // C)
-    if Coo.nnz == 0:
+    if Csr.nnz == 0:
         return np.zeros((nbr, 1, R, C), dtype), np.zeros((nbr, 1), np.int32)
-    br = Coo.row // R
-    bc = Coo.col // C
-    bid = br.astype(np.int64) * nbc + bc
-    uniq, inv = np.unique(bid, return_inverse=True)
-    ubr, ubc = uniq // nbc, uniq % nbc
-    counts = np.bincount(ubr, minlength=nbr)
+    # the same entries in a shape of whole blocks, as scipy's tobsr requires
+    indptr = np.concatenate([Csr.indptr, np.full(nbr * R - m, Csr.indptr[-1], Csr.indptr.dtype)])
+    B = sp.csr_matrix((Csr.data, Csr.indices, indptr), shape=(nbr * R, nbc * C)).tobsr(
+        blocksize=(R, C))
+    B.sort_indices()
+    counts = np.diff(B.indptr)
     Kb = max(int(counts.max()), 1)
     # slot of each stored block within its block-row
-    starts = np.zeros(nbr + 1, np.int64)
-    np.cumsum(counts, out=starts[1:])
-    slot = np.arange(uniq.size) - starts[ubr]
+    brow = np.repeat(np.arange(nbr), counts)
+    slot = np.arange(B.indices.size) - B.indptr[brow]
     blocks = np.zeros((nbr, Kb, R, C), dtype)
     bcols = np.zeros((nbr, Kb), np.int32)
-    bcols[ubr, slot] = ubc
-    blocks[ubr[inv], slot[inv], Coo.row % R, Coo.col % C] = Coo.data
+    bcols[brow, slot] = B.indices
+    blocks[brow, slot] = B.data
     return blocks, bcols
 
 

@@ -76,6 +76,12 @@ args = [torch.tensor(a, requires_grad=True) for a in (Pb, q[:3], np.stack([A] * 
                                                        -np.ones((3, m)), np.ones((3, m)))]
 make_qp_layer(dtype=torch.float64)(*args).sum().backward()
 assert all(a.grad is not None and a.grad.device.type == 'cpu' for a in args)
+from osqp_tpu_torch.parallel import banded_qp_setup, banded_qp_solve, make_mesh
+Pd = sp.diags([np.full(nb, 2.0), np.full(nb - 1, -0.9), np.full(nb - 1, -0.9)], [0, 1, -1])
+r = banded_qp_solve(make_mesh((4,), ('mp',), device='cpu'),
+                    banded_qp_setup(Pd.tocsc(), np.ones(nb), Ab, -1.5 * np.ones(nb),
+                                    1.5 * np.ones(nb), 4, device='cpu'))
+assert r.status == 1, r.status
 assert not any(k == 'jax' or k.startswith(('jax.', 'osqp_tpu.')) for k in sys.modules
                if sys.modules[k] is not None)
 print('ok')
@@ -87,7 +93,8 @@ def test_port_imports_and_solves_without_jax():
     every module of the port, solves a tiny batch and a small banded QP in
     sparse mode on the CPU, then the banded QP again with polishing, verbose
     printing and a time limit, a batch with per-instance P on the vmap
-    engine and a forward and backward pass of the nn layer."""
+    engine, a forward and backward pass of the nn layer and the banded QP
+    on a 4-shard CPU mesh."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, '-c', _CHILD], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -97,12 +104,18 @@ def test_port_imports_and_solves_without_jax():
 
 def test_no_device_without_cuda_raises(monkeypatch):
     """BatchedOSQP() with no device raises when CUDA is absent, on either
-    engine."""
+    engine, and so does the multi-device package's make_mesh()."""
+    from osqp_tpu_torch.parallel import make_mesh
+
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     for engine in ('auto', 'vmap', 'shared'):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             osqp_tpu_torch.BatchedOSQP(engine=engine)
     assert osqp_tpu_torch.BatchedOSQP(device='cpu')._device.type == 'cpu'
+    for shape, names in (((4,), ('mp',)), ((2, 2), ('dp', 'mp'))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_mesh(shape, names)
+    assert make_mesh((4,), ('mp',), device='cpu').device_list[0].type == 'cpu'
 
 
 def test_cuda_tensor_without_kernel_raises_not_falls_back(monkeypatch):

@@ -98,3 +98,19 @@ def test_capabilities_match_jax_package():
     got = inspect.signature(osqp_tpu_torch.OSQP.codegen)
     want = inspect.signature(osqp_tpu.OSQP.codegen)
     assert got == want
+
+
+@pytest.mark.parametrize('name', __import__('osqp_tpu.parallel', fromlist=['__all__']).__all__)
+def test_parallel_names_match_jax_package(name):
+    """Every name of ``osqp_tpu.parallel.__all__`` is in the port's
+    ``parallel`` package and its ``__all__``; the result and data tuples
+    carry the JAX package's fields in its order (the port's host counts
+    follow them)."""
+    import osqp_tpu.parallel as jp
+    import osqp_tpu_torch.parallel as tp
+
+    assert name in tp.__all__
+    got, want = getattr(tp, name), getattr(jp, name)
+    assert callable(got)
+    if hasattr(want, '_fields'):
+        assert got._fields[:len(want._fields)] == want._fields
