@@ -14,10 +14,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    n=128, m=192, and f64 at a ragged B=333, n=13, m=19; then its reduced
    iteration precisions, iter_prec 'high' and 'default' (the tensor-core
    product), in f32 at the headline, at n=128, m=192 and at the ragged
-   shape, each at K=1 and K=25; with each launch's plan, the columns it
-   iterates, and the kernel's (device time at K=25 and K=0, and CUDA events
-   over back-to-back launches), the plain version's and the unfused torch
-   epoch's (in the same mode) device times;
+   shape, each at K=1 and K=25; with each launch's plan and the design it
+   picks (the register-resident wgmma design, or the streamed mma.sync one
+   at n=128, m=192), the columns it iterates, and the kernel's (device time
+   at K=25 and K=0, one iteration's time between them, and CUDA events over
+   back-to-back launches), the plain version's and the unfused torch
+   epoch's (in the same mode) device times; each K1 instantiation's
+   registers and spills from the ptxas report (the wgmma design must not
+   spill), and each reduced mode's time over 'highest''s at the headline;
 4. the batched main path end to end: BatchedOSQP setup, cold solve, then a
    10-step warm MPC rollout (update(q) with q + 0.01 noise, then solve) at
    the headline shape in f32, eps 1e-3.  Every instance must be solved, every
@@ -429,10 +433,11 @@ RAGGED = (333, 13, 19)
 
 
 def k1_row(card, dtype, shape, tol, iter_prec='highest'):
-    """K1 against its plain version at one shape and mode: the launch's plan,
-    the columns it iterates, the kernel's device time at K=25 and at K=0
-    (merge, check and capture only), CUDA events over back-to-back launches,
-    and the plain and unfused epochs' device times.  In the reduced modes
+    """K1 against its plain version at one shape and mode: the launch's plan
+    (with the design it picks), the columns it iterates, the kernel's device
+    time at K=25 and at K=0 (merge, check and capture only) and the time of
+    one iteration between them, CUDA events over back-to-back launches, and
+    the plain and unfused epochs' device times.  In the reduced modes
     also one iteration (K=1), held to 1e-5 of the state's scale.  At K=25 the
     tensor cores' sums, in another order than the plain version's, move the
     iterates of the reduced modes by more than an ulp, so a column at the
@@ -463,8 +468,9 @@ def k1_row(card, dtype, shape, tol, iter_prec='highest'):
                                f32_peak if dtype == torch.float32 else f64_peak, mem_peak,
                                PASSES[iter_prec], bf16_peak)
     p = se.plan_tile(n, m, B, item, n_sm, halves)
-    plan = dict(p._asdict(), f_mode='resident' if p.ks == n + 2 * m else 'slab',
-                smem=se.smem_bytes(n, m, p.tb, p.ks, item, halves))
+    smem = (se.wg_smem_bytes(n, m, halves, p.xc, p.yc, p.tb) if p.design == 'wgmma'
+            else se.smem_bytes(n, m, p.tb, p.ks, item, halves))
+    plan = dict(p._asdict(), f_mode='resident' if p.ks == n + 2 * m else 'slab', smem=smem)
     row = dict(iter_prec=iter_prec, dtype=str(dtype).replace('torch.', ''), B=B, n=n, m=m)
     if halves:
         sc1 = sc._replace(K=1)
@@ -486,15 +492,55 @@ def k1_row(card, dtype, shape, tol, iter_prec='highest'):
     row.update(active=n_active, iterated_cols=iterated_columns(state[6], p.tb), plan=plan,
                max_abs_err=err, tol=tol, status_mismatch=int((got[6] != want[6]).sum()),
                state_err=max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])),
-               ms=ms, ms_K0=ms_k0, events_ms=events_ms,
+               ms=ms, ms_K0=ms_k0, per_iter_us=(ms - ms_k0) / sc.K * 1e3, events_ms=events_ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
     print('shared_epoch vs plain:', json.dumps(row), flush=True)
     return row
 
 
+def k1_registers():
+    """Registers, stack and spills of each K1 instantiation, from the ptxas
+    report (-Xptxas -v) that ops/_build.py keeps beside the library.  Fails
+    if an instantiation of the register-resident design spills."""
+    import re
+    from osqp_tpu_torch.ops import _build
+    from osqp_tpu_torch.ops import shared_epoch as se
+
+    log = _build.build('shared_epoch').with_suffix('.log').read_text()
+    rows, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '\S*?(shared_epoch_kernel(?:_wg)?)I(\w+?)EEv",
+                          line)
+        if entry:
+            args = [t or {'f': 'float', 'd': 'double'}.get(c, c)
+                    for c, t in re.findall(r'(f|d)|Li(\d+)E', entry.group(2))]
+            name = f"{entry.group(1)}<{', '.join(args)}>"
+            continue
+        frame = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill '
+                          r'loads', line)
+        if frame and name:
+            rows.append(dict(kernel=name, stack=int(frame.group(1)),
+                             spill_stores=int(frame.group(2)), spill_loads=int(frame.group(3))))
+        used = re.search(r'Used (\d+) registers', line)
+        if used and name and rows and rows[-1]['kernel'] == name:
+            rows[-1]['registers'] = int(used.group(1))
+            name = None
+    wg = [r for r in rows if '_wg' in r['kernel']]
+    want = sum(1 for h in se.ITER_PRECS.values() if h)  # one a reduced mode
+    if len(wg) != want or any('registers' not in r for r in wg):
+        raise AssertionError(f'the ptxas report shows {len(wg)} instantiations of the '
+                             f'register-resident design, not {want}: {wg}')
+    spilled = [r['kernel'] for r in wg if r['spill_stores'] or r['spill_loads']]
+    if spilled:
+        raise AssertionError(f'the register-resident design spills in {spilled}')
+    return rows
+
+
 def kernel_phase(card):
     """K1 against its plain version: 'highest' at the four shapes, then the
-    reduced modes in f32 at the headline, slab and ragged shapes."""
+    reduced modes in f32 at the headline, slab and ragged shapes; each K1
+    instantiation's registers and spills, and at the headline each reduced
+    mode's time over 'highest''s from the same call."""
     # tolerances: f32 sums run in another order and with FMA contraction in
     # the kernel; over 25 iterations of a nonexpansive map that stays within
     # a few 1e-6 of the state's scale, so 2e-4 leaves room; f64 the same at
@@ -506,6 +552,16 @@ def kernel_phase(card):
     for iter_prec, tol in (('high', 2e-4), ('default', 5e-2)):
         rows += [k1_row(card, torch.float32, shape, tol, iter_prec)
                  for shape in (HEADLINE, SLAB, RAGGED)]
+    print('K1 instantiations:', json.dumps(k1_registers()), flush=True)
+    head = {r['iter_prec']: r for r in rows
+            if (r['B'], r['n'], r['m']) == HEADLINE and r['dtype'] == 'float32'}
+    for iter_prec in ('high', 'default'):
+        r = head[iter_prec]
+        r['ratio_to_highest'] = r['ms'] / head['highest']['ms']
+        print(f"K1 {iter_prec} at the headline: {r['plan']['design']}, {r['ms']:.4f} ms "
+              f"(K=0 {r['ms_K0']:.4f}, {r['per_iter_us']:.3f} us an iteration) against "
+              f"'highest' {head['highest']['ms']:.4f} ms (K=0 {head['highest']['ms_K0']:.4f}): "
+              f"{r['ratio_to_highest']:.3f}", flush=True)
     return rows
 
 
@@ -2738,6 +2794,10 @@ def main():
         k: dict(mean_iters_cold=v['mean_iters_cold'], mean_iters_warm=v.get('mean_iters_warm'),
                 warm_solves_per_s=v.get('warm_solves_per_s')) for k, v in batched.items()}),
         flush=True)
+    print("'high' mean iterations over 'highest''s: cold "
+          f"{batched['high']['mean_iters_cold'] / batched['highest']['mean_iters_cold']:.4f}, "
+          f"warm {batched['high']['mean_iters_warm'] / batched['highest']['mean_iters_warm']:.4f}",
+          flush=True)
     mark('phase 4 (shared engine)')
 
     # 4b-4d. the vmap engine, batch_qp_solve and mpc_rollout, and the
@@ -2847,8 +2907,10 @@ def main():
         modes[iter_prec] = dict(
             launches=batched[iter_prec]['kernel_launches'], max_abs_err=r['max_abs_err'],
             max_abs_err_K1=r['max_abs_err_K1'], status_mismatch=r['status_mismatch'],
-            ms=r['ms'], plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
-            bound_by=r['bound_by'], library_ms=r['library_ms'])
+            design=r['plan']['design'], ms=r['ms'], ms_K0=r['ms_K0'],
+            per_iter_us=r['per_iter_us'], ratio_to_highest=r['ratio_to_highest'],
+            plain_ms=r['plain_ms'], bound_ms=r['bound_ms'], bound_by=r['bound_by'],
+            library_ms=r['library_ms'])
     hi_rows = [r for r in rows if r['iter_prec'] == 'highest']
     kernels = [dict(
         name='shared_epoch', route='cuda', source='osqp_tpu_torch/ops/csrc/shared_epoch.cu',

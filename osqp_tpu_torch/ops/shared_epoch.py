@@ -25,6 +25,10 @@ the bfloat16 roundings.  Each bfloat16 product is exact in float32 and summed
 in float32, as on the TPU's matrix unit (and on Hopper's tensor cores).  The
 reduced modes are float32 only, as in the JAX package.  Only the iteration
 product changes: the check, residuals and certificates stay at full precision.
+On the card ``plan_tile`` picks the kernel's design: the CUDA cores for
+'highest'; for the reduced modes ``wgmma`` with the state in registers in an
+internal feature order (``wg_positions``) where n and m fit its paddings, else
+``mma.sync`` tiles with F's halves streamed.
 
 ``shared_epoch`` launches the kernel for CUDA tensors (and raises if it cannot)
 and runs ``shared_epoch_plain`` for CPU tensors.  ``launches`` counts kernel
@@ -66,8 +70,15 @@ _BLOCK_COLS = 8
 # (the kernel's H): 0 is the working dtype's exact product.
 ITER_PRECS = {'highest': 0, 'default': 1, 'high': 2}
 # Tensor-core tiles (16 rows of V by 8 columns) a warp may own in the reduced
-# modes (kMaxTiles in csrc/shared_epoch.cu).
+# modes' streamed design (kMaxTiles in csrc/shared_epoch.cu).
 _MAX_TILES = 4
+# The reduced modes' register-resident design (shared_epoch_kernel_wg): the
+# first warpgroup of a block of 256 threads (kWgThreads) iterates 32 batch
+# columns (kWgCols, one per thread), and the (XC, YC) it is instantiated
+# for: x padded to 8 XC features, z and y each to 8 YC (start_wg).
+_WG_THREADS = 256
+_WG_COLS = 32
+_WG_PAD = (4, 6)
 
 
 def iter_halves(iter_prec: str, dtype) -> int:
@@ -294,13 +305,21 @@ class TilePlan(NamedTuple):
     ``threads`` per block, each owning a 4 x ``tc`` micro-tile of
     ``V = F S`` (of the check's products, in the reduced modes), and F' staged
     ``ks`` rows of k at a time: all of it once per epoch (F resident,
-    ``ks = n + 2m``) or in slabs in every iteration.  The block's shared
-    memory is ``smem_bytes(n, m, tb, ks, itemsize, halves)``."""
+    ``ks = n + 2m``) or in slabs in every iteration.  ``design`` names the
+    iterations' code: ``'cuda_cores'`` ('highest'), ``'wgmma'`` (the reduced
+    modes with the state in registers; ``xc``, ``yc`` its padding, see
+    ``wg_positions``) or ``'mma_sync'`` (the reduced modes where that does not
+    fit: F's halves streamed).  The block's shared memory is
+    ``smem_bytes(n, m, tb, ks, itemsize, halves)``, or
+    ``wg_smem_bytes(n, m, halves, xc, yc, tb)`` for ``'wgmma'``."""
 
     tb: int
     threads: int
     tc: int
     ks: int
+    design: str = 'cuda_cores'
+    xc: int = 0
+    yc: int = 0
 
 
 def w_stride(nm: int, itemsize: int) -> int:
@@ -333,6 +352,51 @@ def smem_bytes(n: int, m: int, tb: int, ks: int, itemsize: int, halves: int = 0)
              nm * tb, m * tb, m * tb, n * tb, m, m, 16 * tb, halves * tb * bf16_words(N2))
     align = 16 // itemsize
     return sum(-(-s // align) * align for s in sizes) * itemsize
+
+
+def wg_positions(n: int, m: int, xc: int, yc: int):
+    """The wgmma design's internal feature order (``wg_orig`` in the .cu
+    source): the positions of the features of ``S = [x; z; y]`` among the
+    kernel's ``n_s`` state features and of ``V = [x~; Pz]`` among its ``n_v``
+    product features.  x_i sits at i, z_j at 8 xc + j, y_j at 8 (xc + yc) + j;
+    x~_i and Pz_j where x_i and z_j do.  A thread holds features
+    8 c + 2 tig + {0, 1} of every chunk c of 8, so Pz_j, z_j and y_j, 8 yc
+    apart, fall in one position of its fragments.  ``n_v = 8 (xc + yc)`` is
+    wgmma's N; ``n_s`` is 8 (xc + 2 yc) rounded up to whole k steps of 16.
+    Returns ``(s_pos, v_pos, n_s, n_v)``; raises ``ValueError`` where x or z
+    does not fit its padding."""
+    if not (0 <= n <= 8 * xc and 0 <= m <= 8 * yc):
+        raise ValueError(f'wg_positions: n={n}, m={m} exceed 8 xc = {8 * xc}, 8 yc = {8 * yc}')
+    s_pos = np.concatenate([np.arange(n), 8 * xc + np.arange(m), 8 * (xc + yc) + np.arange(m)])
+    return s_pos, s_pos[:n + m], 16 * (-(-(xc + 2 * yc) // 2)), 8 * (xc + yc)
+
+
+def wg_smem_bytes(n: int, m: int, halves: int, xc: int, yc: int, tb: int) -> int:
+    """Dynamic shared memory of one block of ``tb`` columns in the wgmma
+    design: the ``WgLayout`` of the .cu source (F's ``halves`` bfloat16
+    halves in wgmma's layout or the check's [P; A]' and A'', whichever is
+    larger; the state S, V, T of the check (V first holds c0), dX, dY, L, U,
+    Q; 16 partial results per column; rho and 1/rho in z's internal order;
+    c0, L and U in fragment order), each region rounded up to 16 bytes."""
+    nm, N2 = n + m, n + 2 * m
+    nv, kt = xc + yc, -(-(xc + 2 * yc) // 2)
+    sizes = (max(halves * kt * nv * 64, nm * w_stride(nm, 4)),
+             N2 * tb, nm * tb, n * tb, n * tb, m * tb, m * tb, m * tb, n * tb, 16 * tb,
+             16 * yc, nv * 8 * tb, yc * 16 * tb)
+    return sum(-(-s // 4) * 4 for s in sizes) * 4
+
+
+def _wg_plan(n: int, m: int, halves: int, itemsize: int):
+    """The wgmma design's plan, or None where it does not run (float64,
+    'highest', or n and m past the instantiated padding): 32 columns per
+    block, one per iterating thread, at every batch size; shared memory
+    within the limit."""
+    xc, yc = _WG_PAD
+    if itemsize != 4 or not halves or n > 8 * xc or m > 8 * yc:
+        return None
+    if wg_smem_bytes(n, m, halves, xc, yc, _WG_COLS) > _SMEM_LIMIT:
+        return None
+    return TilePlan(_WG_COLS, _WG_THREADS, 2, n + 2 * m, 'wgmma', xc, yc)
 
 
 def make_plan(n: int, m: int, tb: int, tc: int, itemsize: int, halves: int = 0) -> TilePlan:
@@ -372,18 +436,28 @@ def make_plan(n: int, m: int, tb: int, tc: int, itemsize: int, halves: int = 0) 
             raise ValueError(
                 f'shared_epoch: n={n}, m={m} needs {smem_bytes(n, m, tb, 8, itemsize)} bytes '
                 f'of shared memory at {tb} batch columns per block (limit {_SMEM_LIMIT})')
-    return TilePlan(tb, threads, tc, ks)
+    return TilePlan(tb, threads, tc, ks, 'mma_sync' if halves else 'cuda_cores')
 
 
 @functools.lru_cache(maxsize=64)
 def plan_tile(n: int, m: int, B: int, itemsize: int, n_sm: int, halves: int = 0) -> TilePlan:
-    """The kernel's plan.  Block width: the power of two up to 32 (at least
-    8 in the reduced modes, whose tensor-core tiles are 8 columns wide) whose
-    tile fits and that least loads the busiest SM (its blocks times each
-    block's columns plus a fixed cost per block), the wider one on a tie.
-    Micro-tile columns: 2 where that still gives the block at least eight
-    warps, else 1.  Threads stay within the kernel's 384, and at least one
-    per batch column of the tile (the check's column loops)."""
+    """The kernel's plan.  The reduced modes take the wgmma design where its
+    padding holds n and m and its shared memory fits (``_wg_plan``);
+    otherwise, and in 'highest', ``block_plan``."""
+    wg = _wg_plan(n, m, halves, itemsize)
+    return wg if wg is not None else block_plan(n, m, B, itemsize, n_sm, halves)
+
+
+def block_plan(n: int, m: int, B: int, itemsize: int, n_sm: int, halves: int = 0) -> TilePlan:
+    """The plan of the CUDA-core design ('highest') and of the streamed
+    ``mma.sync`` design (the reduced modes).  Block width: the power of two
+    up to 32 (at least 8 in the reduced modes, whose tensor-core tiles are 8
+    columns wide) whose tile fits and that least loads the busiest SM (its
+    blocks times each block's columns plus a fixed cost per block), the
+    wider one on a tie.  Micro-tile columns: 2 where that still gives the
+    block at least eight warps, else 1.  Threads stay within the kernel's
+    384, and at least one per batch column of the tile (the check's column
+    loops)."""
     n_groups = -(-(n + m) // _ROWS)
     widths = (32, 16, 8) if halves else (32, 16, 8, 4, 2, 1)
     least = smem_bytes(n, m, widths[-1], 16 if halves else 8, itemsize, halves)
@@ -425,7 +499,7 @@ def _lib_fn(dtype):
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         ci = ctypes.c_int
-        fn.argtypes = [ci] * 10 + [vp] * 33
+        fn.argtypes = [ci] * 12 + [vp] * 33
         fn.restype = ci
     return fn
 
@@ -435,9 +509,10 @@ def shared_epoch(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
                  sc: EpochScalars):
     """One fused epoch.  CUDA tensors: one launch of the Hopper kernel in
     ``csrc/shared_epoch.cu`` on the current stream, whose iteration product
-    runs on the tensor cores in the reduced modes of ``sc.iter_prec``.  CPU
-    tensors: the plain version.  Returns ``(S, dX, dY, fS, fdX, fdY, status,
-    pri, dua, obj, dobj)``; the inputs are not modified."""
+    runs on the tensor cores in the reduced modes of ``sc.iter_prec`` (the
+    design ``plan_tile`` picks).  CPU tensors: the plain version.  Returns
+    ``(S, dX, dY, fS, fdX, fdY, status, pri, dua, obj, dobj)``; the inputs
+    are not modified."""
     args = (F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
             c0, Q, L, U, S, dX, dY, fS, fdX, fdY, status)
     if S.device.type == 'cpu':
@@ -478,7 +553,7 @@ def shared_epoch(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
     global launches
     with torch.cuda.device(S.device):
         err = _lib_fn(dtype)(
-            n, m, B, plan.tb, plan.tc, plan.ks, halves, int(sc.K),
+            n, m, B, plan.tb, plan.tc, plan.ks, halves, plan.xc, plan.yc, int(sc.K),
             int(not sc.scaled_termination),
             int(sc.check_dualgap),
             scal.ctypes.data, *(t.data_ptr() for t in args),

@@ -177,6 +177,93 @@ def test_kernel_reduced_modes_match_plain_on_cuda(B, n, m, iter_prec):
                                            atol=tol * scale, equal_nan=True)
 
 
+def _same(a, b):
+    """Equal bit for bit, NaN where NaN."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(a.nan_to_num(),
+                                                                       b.nan_to_num())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('iter_prec', ['high', 'default'])
+@pytest.mark.parametrize('B, n, m', [(333, 13, 19), (332, 13, 19), (4096 + 17, 32, 48),
+                                     (4096 + 4, 32, 48), (8192 + 4, 32, 48)])
+def test_kernel_wgmma_design_on_cuda(B, n, m, iter_prec, monkeypatch):
+    """The reduced modes' register-resident wgmma design at ragged edges of
+    its 32-column blocks, n=13, m=19 padded to 32 and 48 features.  Where B
+    is odd the tiles arrive by cp.async and the captures copy one element at
+    a time; where B is a multiple of 4 (332, 4100, 8196: rows 16-byte
+    aligned, the last block partial) by cp.async.bulk with the partial
+    block's pad columns zeroed, and the captures copy 16 bytes at a time;
+    8196 takes more than one wave of blocks.  K=1: statuses equal, values
+    within 1e-5 of the state's scale.  K=25: every status is the plain
+    check's of the kernel's own iterates and the state lies within 2e-4
+    ('high') or 5e-2 ('default') of the plain version's, as for the
+    streamed design; at n=32, m=48, where the internal order keeps the k
+    steps of 16 in place, the epoch equals the streamed mma.sync design's
+    bit for bit (the same bfloat16 products, summed in the same order by
+    the tensor cores).  Each call launches the kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    fixed, st, sc = _epoch_case(B, n, m, torch.float32)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = tse.plan_tile(n, m, B, 4, n_sm, tse.ITER_PRECS[iter_prec])
+    assert plan.design == 'wgmma' and plan.tb == 32
+    scale = max(1.0, float(st[0].abs().max()))
+    for K in (1, 25):
+        sck = sc._replace(K=K, iter_prec=iter_prec)
+        before = tse.launches
+        got = tse.shared_epoch(*fixed, *st, sck)
+        torch.cuda.synchronize()
+        assert tse.launches == before + 1
+        want = tse.shared_epoch_plain(*fixed, *st, sck)
+        own = tse.shared_epoch_plain(*fixed, *got[:3], *st[3:], sck._replace(K=0))
+        assert torch.equal(own[6], got[6])
+        if K == 1:
+            assert torch.equal(got[6], want[6])
+            for k in (0, 1, 2, 3, 4, 5, 7, 8, 9, 10):
+                torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5 * scale,
+                                           equal_nan=True)
+        else:
+            tol = 2e-4 if iter_prec == 'high' else 5e-2
+            for k in range(3):
+                torch.testing.assert_close(got[k], want[k], rtol=0, atol=tol * scale)
+    if n == 32:
+        monkeypatch.setattr(tse, 'plan_tile', tse.block_plan)
+        streamed = tse.shared_epoch(*fixed, *st, sck)
+        torch.cuda.synchronize()
+        assert all(_same(g, s) for g, s in zip(got, streamed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('iter_prec', ['high', 'default'])
+def test_kernel_wgmma_terminated_block_and_k0_on_cuda(iter_prec):
+    """The wgmma design at the headline shape.  A block whose columns have
+    all terminated (its statuses set to solved) runs no iteration: its
+    state, deltas, captures and statuses come back bit for bit, and its
+    check results equal a K=0 launch's.  At K=0 every output equals the
+    'highest' design's K=0 outputs bit for bit (the same check on the same
+    state)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    B, n, m = 4096, 32, 48
+    fixed, st, sc = _epoch_case(B, n, m, torch.float32)
+    sck = sc._replace(iter_prec=iter_prec)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    tb = tse.plan_tile(n, m, B, 4, n_sm, tse.ITER_PRECS[iter_prec]).tb
+    status = st[6].clone()
+    status[:tb] = tse.SOLVED
+    st = (*st[:6], status)
+    got = tse.shared_epoch(*fixed, *st, sck)
+    k0 = tse.shared_epoch(*fixed, *st, sck._replace(K=0))
+    highest = tse.shared_epoch(*fixed, *st, sc._replace(K=0))
+    torch.cuda.synchronize()
+    for k in range(7):
+        assert torch.equal(got[k][..., :tb], st[k][..., :tb])
+    for k in range(7, 11):
+        assert _same(got[k][:tb], k0[k][:tb])
+    assert all(_same(a, b) for a, b in zip(k0, highest))
+
+
 @pytest.mark.cuda
 def test_reduced_mode_rejected_in_f64_on_cuda():
     """A reduced mode on float64 tensors raises before any launch."""

@@ -317,14 +317,14 @@ def test_pick_tile():
         plan(1000, 1100, 64, 4, 132)
 
 
-def _cu_layout_regions():
-    """The region sizes of ``Layout`` in csrc/shared_epoch.cu, as source
-    expressions."""
+def _cu_layout_regions(count='kRegions'):
+    """The region sizes of ``Layout`` (or, with ``count='kWgRegions'``, of
+    ``WgLayout``) in csrc/shared_epoch.cu, as source expressions."""
     import re
     from pathlib import Path
 
     src = (Path(tse.__file__).parent / 'csrc' / 'shared_epoch.cu').read_text()
-    body = re.search(r'const int sizes\[kRegions\] = \{(.*?)\};', src, re.S).group(1)
+    body = re.search(r'const int sizes\[' + count + r'\] = \{(.*?)\};', src, re.S).group(1)
     exprs = [line.split('//')[0].strip().rstrip(',') for line in body.splitlines()]
     return [e for e in exprs if e]
 
@@ -361,27 +361,145 @@ def _cu_layout_bytes(n, m, tb, ks, size, halves):
     return sum(-(-eval(e, {}, env) // align) * align for e in regions) * size
 
 
+def _cu_wg_layout_bytes(n, m, halves, xc, yc, tb):
+    """The bytes of the .cu source's ``WgLayout`` at a plan: its region
+    expressions evaluated with the names the constructor defines, each
+    rounded up to 16 bytes."""
+    nm = n + m
+    env = dict(n=n, m=m, nm=nm, N2=n + 2 * m, TB=tb, LDW=tse.w_stride(nm, 4), H=halves,
+               NV=xc + yc, KT=-(-(xc + 2 * yc) // 2), XC=xc, YC=yc, imax=max)
+    regions = _cu_layout_regions('kWgRegions')
+    assert len(regions) == 13
+    return sum(-(-eval(e, {}, env) // 4) * 4 for e in regions) * 4
+
+
 @pytest.mark.parametrize('halves', [1, 2])
 @pytest.mark.parametrize('n, m, B', [(32, 48, 4096), (128, 192, 1024), (13, 19, 333)])
 def test_plan_reduced_modes(n, m, B, halves):
-    """The reduced modes' plans at the headline, slab and ragged shapes: at
-    least 8 columns per block (the tensor-core tiles' width), whole warps of
-    threads, at most 4 tiles of V per warp, F resident at n=32, m=48 and
-    streamed in the deepest slab of whole 16-deep k tiles that fits at
-    n=128, m=192; the planner's shared memory is the .cu source's Layout."""
+    """The reduced modes' plans at the headline, slab and ragged shapes.  The
+    headline and the ragged shape take the wgmma design: 32 columns per
+    block, 256 threads, micro-tiles 4 x 2 in the check, F resident
+    (ks = n + 2m), the instantiated padding (4, 6), shared memory within the
+    limit and equal to the .cu source's WgLayout.  n=128, m=192 exceeds the
+    padding and keeps
+    the streamed mma.sync plan: at least 8 columns per block (the
+    tensor-core tiles' width), whole warps of threads, at most 4 tiles of V
+    per warp, F streamed in the deepest slab of whole 16-deep k tiles that
+    fits; its shared memory is the .cu source's Layout.  Neither runs in
+    float64."""
     p = tse.plan_tile(n, m, B, 4, 132, halves)
+    if n != 128:
+        assert p.design == 'wgmma'
+        assert (p.tb, p.threads, p.tc, p.ks) == (32, 256, 2, n + 2 * m)
+        assert (p.xc, p.yc) == (4, 6)
+        smem = tse.wg_smem_bytes(n, m, halves, p.xc, p.yc, p.tb)
+        assert smem <= tse._SMEM_LIMIT
+        assert _cu_wg_layout_bytes(n, m, halves, p.xc, p.yc, p.tb) == smem
+        with pytest.raises(ValueError, match='float32'):
+            tse.make_plan(n, m, 32, 2, 8, halves)
+        return
+    assert p.design == 'mma_sync' and (p.xc, p.yc) == (0, 0)
     assert p.tb >= 8 and p.threads % 32 == 0 and p.tb <= p.threads <= tse._MAX_THREADS
     tiles = -(-(n + m) // 16) * (p.tb // 8)
     assert -(-tiles // (p.threads // 32)) <= tse._MAX_TILES
     smem = tse.smem_bytes(n, m, p.tb, p.ks, 4, halves)
     assert smem <= tse._SMEM_LIMIT
     assert _cu_layout_bytes(n, m, p.tb, p.ks, 4, halves) == smem
-    assert (p.ks == n + 2 * m) == (n != 128)
-    if p.ks < n + 2 * m:
-        assert p.ks % 16 == 0
-        assert tse.smem_bytes(n, m, p.tb, p.ks + 16, 4, halves) > tse._SMEM_LIMIT
+    assert p.ks < n + 2 * m and p.ks % 16 == 0
+    assert tse.smem_bytes(n, m, p.tb, p.ks + 16, 4, halves) > tse._SMEM_LIMIT
     with pytest.raises(ValueError, match='float32'):
         tse.make_plan(n, m, p.tb, p.tc, 8, halves)
+
+
+@pytest.mark.parametrize('B', [64, 4096, 4224, 4225, 8209])
+def test_plan_wgmma_block_width(B):
+    """The wgmma design takes 32 columns per block (one per iterating
+    thread) at every batch size, below one wave of blocks over 132 SMs
+    (4224 columns) and past it.  Its shared memory fits at the headline
+    shape in either reduced mode, as the .cu source lays it out; 'highest'
+    and float64 never take it, and a shape past the padding (n = 33 or
+    m = 49) takes the streamed design."""
+    for halves in (1, 2):
+        p = tse.plan_tile(32, 48, B, 4, 132, halves)
+        assert p.design == 'wgmma' and p.tb == 32 and p.threads == 256
+        smem = tse.wg_smem_bytes(32, 48, halves, 4, 6, 32)
+        assert smem <= tse._SMEM_LIMIT
+        assert _cu_wg_layout_bytes(32, 48, halves, 4, 6, 32) == smem
+        assert tse.plan_tile(33, 48, B, 4, 132, halves).design == 'mma_sync'
+        assert tse.plan_tile(32, 49, B, 4, 132, halves).design == 'mma_sync'
+    assert tse.plan_tile(32, 48, B, 4, 132).design == 'cuda_cores'
+    assert tse.plan_tile(32, 48, B, 8, 132).design == 'cuda_cores'
+
+
+@pytest.mark.parametrize('n, m', [(32, 48), (13, 19), (20, 13)])
+def test_wg_positions_pair_z_and_y(n, m):
+    """The wgmma design's internal feature order at its padding: x, z and
+    y in disjoint 8-aligned segments of the state, zero-padded to whole k
+    steps of 16; V's x~ and Pz where x and z sit.  A thread holds features 8 c + 2 tig + {0, 1} of every chunk c of
+    8, so Pz_j, z_j and y_j share the thread and the element (position mod
+    8), and y_j's chunk is z_j's plus yc, a compile-time offset."""
+    xc, yc = tse._WG_PAD
+    s_pos, v_pos, n_s, n_v = tse.wg_positions(n, m, xc, yc)
+    assert n_s % 16 == 0 and n_s >= 8 * (xc + 2 * yc) and n_v == 8 * (xc + yc) >= n + m
+    assert len(set(s_pos.tolist())) == n + 2 * m and s_pos.max() < n_s
+    x, z, y = s_pos[:n], s_pos[n:n + m], s_pos[n + m:]
+    assert x.max() < 8 * xc <= z.min() and z.max() < 8 * (xc + yc) <= y.min()
+    np.testing.assert_array_equal(v_pos, s_pos[:n + m])
+    np.testing.assert_array_equal(z % 8, y % 8)
+    np.testing.assert_array_equal(y // 8, z // 8 + yc)
+    np.testing.assert_array_equal(v_pos[n:] % 8, z % 8)
+    with pytest.raises(ValueError):
+        tse.wg_positions(8 * xc + 1, m, xc, yc)
+
+
+@pytest.mark.parametrize('n, m, dtype, iter_prec', [
+    (32, 48, torch.float64, 'highest'), (13, 19, torch.float64, 'highest'),
+    (13, 19, torch.float32, 'high'), (20, 13, torch.float32, 'default')])
+def test_wg_order_iteration_matches_affine_iterations(n, m, dtype, iter_prec):
+    """The plain iteration run in the wgmma design's padded, permuted order
+    (F, c0, L, U, rho and 1/rho zero-padded; the y update reading y_j at
+    z_j's position plus 8 yc) equals affine_iterations within 1e-6 of the
+    state's scale, and its padding stays exactly zero."""
+    xc, yc = tse._WG_PAD
+    s_pos, v_pos, n_s, n_v = tse.wg_positions(n, m, xc, yc)
+    rng = np.random.default_rng(5)
+    B, nm, N2, K = 24, n + m, n + 2 * m, 6
+    t = lambda a: torch.tensor(a, dtype=dtype)  # noqa: E731
+    F = t(rng.standard_normal((nm, N2)) / np.sqrt(N2))
+    c0 = t(rng.standard_normal((nm, B)))
+    U = t(rng.random((m, B)) + 0.1)
+    L = -U
+    rho = t(rng.random(m) + 0.5)
+    S = t(rng.standard_normal((N2, B)))
+    dX, dY = t(np.zeros((n, B))), t(np.zeros((m, B)))
+    alpha = tse.np_dtype(dtype)(1.6)
+    want = tse.affine_iterations(F, c0, rho, 1 / rho, L, U, S, dX, dY, alpha, K, iter_prec)[0]
+
+    zo, yo, nz = 8 * xc, 8 * (xc + yc), 8 * yc
+    F_i = torch.zeros((n_v, n_s), dtype=dtype)
+    F_i[torch.as_tensor(v_pos)[:, None], torch.as_tensor(s_pos)[None, :]] = F
+    c0_i = torch.zeros((n_v, B), dtype=dtype)
+    c0_i[torch.as_tensor(v_pos)] = c0
+    L_i, U_i = torch.zeros((nz, B), dtype=dtype), torch.zeros((nz, B), dtype=dtype)
+    L_i[:m], U_i[:m] = L, U
+    r_i, ri_i = torch.zeros((nz, 1), dtype=dtype), torch.zeros((nz, 1), dtype=dtype)
+    r_i[:m, 0], ri_i[:m, 0] = rho, 1 / rho
+    S_i = torch.zeros((n_s, B), dtype=dtype)
+    S_i[torch.as_tensor(s_pos)] = S
+    product = tse.iteration_product(F_i, iter_prec)
+    for _ in range(K):
+        V = product(S_i) + c0_i
+        X, Y = S_i[:zo], S_i[yo:yo + nz]
+        Pz = V[zo:zo + nz]
+        Zn = torch.minimum(torch.maximum(Pz, L_i), U_i)
+        S_i = torch.cat([alpha * V[:zo] + (1 - alpha) * X, Zn,
+                         Y + r_i * (Pz - ri_i * Y - Zn), S_i[yo + nz:]])
+    got = S_i[torch.as_tensor(s_pos)]
+    pad = torch.ones(n_s, dtype=torch.bool)
+    pad[torch.as_tensor(s_pos)] = False
+    assert bool((S_i[pad] == 0).all())
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * scale)
 
 
 def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
