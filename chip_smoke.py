@@ -7,14 +7,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every kernel from the sources in the checkout (nvcc, sm_90a),
-   one nvcc per source, all started together;
+   one nvcc per source, all started together, and of the LDL' symbolic
+   pass (g++);
 3. K1 (shared_epoch) against its plain PyTorch version on the card, one epoch
    from the same state, at the batched path's shapes: B=4096, n=32, m=48
    (the batched condensed-MPC headline) in f32 and f64, f32 at B=1024,
    n=128, m=192, and f64 at a ragged B=333, n=13, m=19; then its reduced
    iteration precisions, iter_prec 'high' and 'default' (the tensor-core
    product), in f32 at the headline, at n=128, m=192 and at the ragged
-   shape, each at K=1 and K=25; with each launch's plan and the design it
+   shape, each at K=1 and K=25 (every mode's statuses, objectives and dual
+   objectives bit for bit those of the plain check on the kernel's own
+   iterates); with each launch's plan and the design it
    picks (the register-resident wgmma design, or the streamed mma.sync one
    at n=128, m=192), the columns it iterates, and the kernel's (device time
    at K=25 and K=0, one iteration's time between them, and CUDA events over
@@ -142,7 +145,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    m = 48 (phase 4b's plant family), f64, eps 1e-3: every instance solved,
    the f64 host check, 64 instances near the port's f64 CPU optimum,
    solves/s.  Wall time, CG steps and host syncs of each solve;
-12. a JSON line with each kernel's numbers (with its launches inside the
+12. the 'ldl' algebra (float64 sparse direct solves by an LDL' of the full
+   KKT matrix): K5 (ldl_factor, the numeric factorization) and K6
+   (ldl_solve, the triangular solves) against their plain versions on the
+   KKT matrices of the Portfolio at 2,000 x 20 and of the banded family at
+   n = 4,096 (an elimination-tree chain): L and D within 1e-10 of each
+   column's max-norm, n_positive equal, the solve within 1e-12 of
+   ||b||_inf, two runs of each bit-identical; then each kernel's device ms,
+   launches, bound, plain ms and the time of torch's sparse-CSR triangular
+   solve at the Portfolio 10,000 x 100 and the banded n = 2^16 KKT
+   matrices; the main path, OSQP(algebra='ldl') on the Portfolio at
+   10,000 x 100 (seed 0, f64, eps 1e-3): setup (Ruiz, symbolic pass and K5
+   timed apart), a cold solve and two warm update(q) steps, every step
+   solved and passing its f64 host termination test, K5 called once per
+   factorization and K6 launched, a profile of one more warm step, and a
+   polished solve from zero iterates; then the card against the CPU (the
+   Portfolio at 2,000 x 20, tests/problems.py's feasibility and
+   primal_infeasible: statuses, iterations within 5%, x within 1e-6) and a
+   non-convex P raising OSQP_NONCVX_ERROR through K5's inertia;
+13. a JSON line with each kernel's numbers (with its launches inside the
    exported programs and on the distributed banded path), then the result
    line {"ok": true, "device": {...}}.
 
@@ -379,16 +400,19 @@ def compare(got, want, tol, status_share=1.0):
 
 
 def check_own_state(fixed, state, sc, got):
-    """The kernel's statuses are those the plain version's check gives the
-    kernel's own iterates (an epoch of K=0 from them): where the reduced
-    modes' statuses differ from the plain epoch's, the iterates moved, not
-    the check.  Raises otherwise."""
+    """The kernel's statuses, objectives and dual objectives are, bit for
+    bit, those the plain version's check gives the kernel's own iterates (an
+    epoch of K=0 from them): both sum in one stated order, each operation
+    rounded on its own (``shared_epoch.ordered_product``, ``ordered_sum``).
+    Raises otherwise."""
     from osqp_tpu_torch.ops import shared_epoch as se
 
     own = se.shared_epoch_plain(*fixed, *got[:3], *state[3:], sc._replace(K=0))
-    if not torch.equal(own[6], got[6]):
-        raise AssertionError(f'{int((own[6] != got[6]).sum())} statuses differ from the plain '
-                             "check of the kernel's own iterates")
+    for k in (6, 9, 10):
+        same = (own[k] == got[k]) | (torch.isnan(own[k]) & torch.isnan(got[k]))
+        if not bool(same.all()):
+            raise AssertionError(f"{int((~same).sum())} of {_OUT_NAMES[k]} differ from the plain "
+                                 "check of the kernel's own iterates")
 
 
 def epoch_bound_ms(B, n, m, itemsize, n_active, peak_flops, peak_bytes, passes=0,
@@ -442,12 +466,12 @@ def k1_row(card, dtype, shape, tol, iter_prec='highest'):
     tensor cores' sums, in another order than the plain version's, move the
     iterates of the reduced modes by more than an ulp, so a column at the
     edge of its termination test may stop an epoch apart: statuses must
-    agree in 99.9% of the columns ('high') or 99% ('default'), and every
-    status must be the plain check's of the kernel's own iterates
-    (``check_own_state``).  'default' is also held loosely in value: one
-    bfloat16 pass turns a one-ulp difference in S into 2^-8 of that element,
-    so the two drift apart by about 4e-3 relative; the state must lie within
-    ``tol`` of its scale."""
+    agree in 99.9% of the columns ('high') or 99% ('default').  'default' is
+    also held loosely in value: one bfloat16 pass turns a one-ulp difference
+    in S into 2^-8 of that element, so the two drift apart by about 4e-3
+    relative; the state must lie within ``tol`` of its scale.  In every mode
+    the status, objective and dual objective must be the plain check's of
+    the kernel's own iterates, bit for bit (``check_own_state``)."""
     from osqp_tpu_torch.ops import shared_epoch as se
 
     f32_peak, f64_peak, mem_peak, bf16_peak = peaks(card)
@@ -480,8 +504,7 @@ def k1_row(card, dtype, shape, tol, iter_prec='highest'):
     got = se.shared_epoch(*fixed, *state, sc)
     torch.cuda.synchronize()
     err = compare(got, want, tol, share)
-    if halves:
-        check_own_state(fixed, state, sc, got)
+    check_own_state(fixed, state, sc, got)
     reps = 20
     kern = lambda: se.shared_epoch(*fixed, *state, sc)  # noqa: E731
     sc0 = sc._replace(K=0)
@@ -1096,6 +1119,16 @@ def banded_qp(n, seed=0):
     q = rng.standard_normal(n)
     A = (sparse.eye(n) + sparse.diags([np.full(n - 2, 0.5)], [-2], shape=(n, n))).tocsc()
     return P, q, A, -1.5 * np.ones(n), 1.5 * np.ones(n)
+
+
+def kkt_triu(P, A, sigma=1e-6, rho=0.1):
+    """The upper triangle (CSC) of the ADMM KKT matrix [[P + sigma I, A'],
+    [A, -I / rho]] of a QP's P and A."""
+    import scipy.sparse as sparse
+
+    n, m = P.shape[0], A.shape[0]
+    K = sparse.bmat([[P + sigma * sparse.eye(n), A.T], [A, -sparse.eye(m) / rho]], format='csc')
+    return sparse.triu(K, format='csc')
 
 
 def dia_bound_ms(D, m_out, n_in, itemsize, peak_flops, peak_bytes):
@@ -2727,6 +2760,371 @@ def parallel_phase(card):
     print(f'multi-device phase: {summary["phase_s"]:.1f} s', flush=True)
     return summary, k2_rows, banded_launches
 
+# ---------------------------------------------------------------------------
+# Phase 12: the 'ldl' algebra (K5, K6)
+# ---------------------------------------------------------------------------
+
+LDL_MAIN = (10_000, 100)  # the main path's Portfolio: assets, factors
+LDL_CHECK_PORTFOLIO = (2_000, 20)
+LDL_CHECK_BANDED = 4096  # n of the banded check (N = 8192, an elimination-tree chain)
+LDL_TIME_BANDED = 1 << 16  # n of the banded timing (N = 131,072)
+LDL_K6_REPS = 10
+LDL_PROFILE_ITERS = 50  # the profiled warm step's cut (a warm step takes about 200)
+
+
+def _ldl_stats(fac):
+    """Size of a factor: N, nnz(L), the tree's depth, the ordering and the
+    factorization's multiply-adds, sum_j Lnz_j (Lnz_j + 1) / 2."""
+    lnz = np.diff(fac.Lp).astype(np.float64)
+    return dict(N=fac.n, nnz_L=fac.sym.nnz_L, depth=fac.sym.depth,
+                ordering='natural' if fac.perm is None else 'rcm',
+                multiply_adds=float(np.sum(lnz * (lnz + 1) / 2)))
+
+
+def ldl_bounds(fac, nnz_K, peak_f64, peak_bytes):
+    """K5's and K6's bounds in ms.  K5: its multiply-adds (2 operations
+    each) at the f64 peak, or its bytes once (K's values, L's indices in
+    both layouts read; L's values in both layouts, D and 1/D written),
+    whichever is larger.  K6: L's values and indices read once per pass
+    plus the vectors (b, x, y, out, 1/D, the permutation) at the memory
+    rate."""
+    st = _ldl_stats(fac)
+    nnz, N = st['nnz_L'], st['N']
+    k5_ops = 2 * st['multiply_adds'] / peak_f64 * 1e3
+    k5_bytes = (nnz_K * 12 + nnz * 8 + nnz * 16 + N * 16) / peak_bytes * 1e3
+    k6_bytes = (2 * nnz * 12 + N * 48) / peak_bytes * 1e3
+    return dict(k5=(max(k5_ops, k5_bytes), 'operations' if k5_ops >= k5_bytes else 'bytes'),
+                k6=(k6_bytes, 'bytes'))
+
+
+def _ldl_plain_factor(fac):
+    from osqp_tpu_torch.ops import ldl as tldl
+
+    s = fac.sym
+    t = lambda a: torch.as_tensor(a, device=DEV)  # noqa: E731
+    return tldl.ldl_factor_plain(t(s.Ap), t(s.Ai), fac.Ax, t(s.Lp), t(s.Li), fac.n)
+
+
+def _ldl_col_err(fac, Lx):
+    """max over L's entries of |K5 - plain| over the column's max-norm (at
+    least 1)."""
+    nnz = fac.sym.nnz_L
+    cols = torch.repeat_interleave(torch.arange(fac.n, device=DEV),
+                                   torch.as_tensor(np.diff(fac.Lp), device=DEV))
+    scale = torch.zeros(fac.n, dtype=Lx.dtype, device=DEV).scatter_reduce(
+        0, cols, Lx.abs(), 'amax')
+    if not nnz:
+        return 0.0
+    return float(((fac.Lx[:nnz] - Lx).abs() / torch.clamp(scale[cols], min=1.0)).max())
+
+
+def ldl_check(label, K_triu):
+    """K5 and K6 against their plain versions on the card in f64: L within
+    1e-10 of each column's max-norm, D within 1e-10 relative, n_positive
+    equal; the solve within 1e-12 of ||b||_inf (the plain solve on K5's L);
+    two K5 runs and two K6 runs bit-identical."""
+    from osqp_tpu_torch.ops import ldl as tldl
+
+    fac = tldl.LDLFactor(K_triu, device=DEV)
+    Lx, D, _, _ = _ldl_plain_factor(fac)
+    err_L = _ldl_col_err(fac, Lx)
+    err_D = float(((fac.D - D).abs() / torch.clamp(D.abs(), min=1.0)).max())
+    if err_L > 1e-10 or err_D > 1e-10 or fac.n_positive != int((D > 0).sum()):
+        raise AssertionError(f'K5 {label}: L err {err_L}, D err {err_D}, n_positive '
+                             f'{fac.n_positive} vs {int((D > 0).sum())}')
+    L1, D1, Di1 = fac.Lx.clone(), fac.D.clone(), fac.Dinv.clone()
+    fac.factor()
+    k5_same = (torch.equal(L1, fac.Lx) and torch.equal(D1, fac.D)
+               and torch.equal(Di1, fac.Dinv))
+    b = torch.as_tensor(np.random.default_rng(0).standard_normal(fac.n), device=DEV)
+    x1, x2 = fac.solve(b), fac.solve(b)
+    k6_same = torch.equal(x1, x2)
+    perm = None if fac.perm is None else torch.as_tensor(fac.perm, device=DEV)
+    want = tldl.ldl_solve_plain(fac.dense_L(), fac.Dinv, perm, b)
+    err_x = float((x1 - want).abs().max()) / float(b.abs().max())
+    if err_x > 1e-12 or not (k5_same and k6_same):
+        raise AssertionError(f'K6 {label}: err {err_x} of ||b||; bit-identical runs: '
+                             f'K5 {k5_same}, K6 {k6_same}')
+    row = dict(case=label, **_ldl_stats(fac), k5_err_L=err_L, k5_err_D=err_D,
+               k6_err_over_b=err_x, k5_bit_identical=k5_same, k6_bit_identical=k6_same)
+    print('ldl check:', json.dumps(row), flush=True)
+    return row
+
+
+def _k6_library(fac, b):
+    """One solve by torch's sparse-CSR triangular solve on CUDA (cuSPARSE),
+    timed with CUDA events (each call runs cuSPARSE's analysis anew):
+    ``(ms, None)``, or ``(None, reason)`` where this torch has none."""
+    import scipy.sparse as sparse
+
+    n = fac.n
+    L = sparse.csc_matrix((fac.Lx[:fac.sym.nnz_L].cpu().numpy(), fac.sym.Li, fac.sym.Lp),
+                          shape=(n, n)) + sparse.eye(n, format='csc')
+
+    def csr(M):
+        M = M.tocsr()
+        M.sort_indices()
+        return torch.sparse_csr_tensor(torch.as_tensor(M.indptr, device=DEV),
+                                       torch.as_tensor(M.indices, device=DEV),
+                                       torch.as_tensor(M.data, device=DEV), size=M.shape)
+
+    Lc, Ltc = csr(L), csr(L.T)
+    perm = None if fac.perm is None else torch.as_tensor(fac.perm, device=DEV)
+
+    def fn():
+        bp = (b[perm] if perm is not None else b)[:, None]
+        y = torch.triangular_solve(bp, Lc, upper=False, unitriangular=True).solution
+        x = torch.triangular_solve(fac.Dinv[:, None] * y, Ltc, upper=True,
+                                   unitriangular=True).solution[:, 0]
+        if perm is None:
+            return x
+        out = torch.empty_like(x)
+        out[perm] = x
+        return out
+
+    try:
+        want = fac.solve(b)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = fn()
+        end.record()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max()) / float(b.abs().max())
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, f'torch.triangular_solve on a sparse CSR CUDA tensor: {e}'[:200]
+    if not err < 1e-8:
+        return None, f'torch.triangular_solve on CSR disagrees with K6 ({err} of ||b||)'
+    return start.elapsed_time(end), None
+
+
+def ldl_timing(card, label, K_triu, plain=True):
+    """K5 and K6 on the card at one KKT matrix: their device ms (CUDA events
+    around one call; K5 also its kernels' summed device time from the
+    profiler), launches, bounds, the plain versions' ms (where the dense copy
+    fits) and the time of torch's sparse-CSR triangular solve.  Where the
+    plain versions run, K5 and K6 are held to them with ``ldl_check``'s
+    limits: L within 1e-10 of each column's max-norm, D within 1e-10
+    relative, n_positive equal, the solve within 1e-12 of ||b||_inf."""
+    from osqp_tpu_torch.ops import ldl as tldl
+
+    peak_f64, peak_bytes = peaks(card)[1], peaks(card)[2]
+    t0 = time.perf_counter()
+    launches = tldl.factor_launches
+    fac = tldl.LDLFactor(K_triu, device=DEV)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = tldl.factor_launches - launches
+    b = torch.as_tensor(np.random.default_rng(1).standard_normal(fac.n), device=DEV)
+    k5_ms = cuda_ms(fac.launch_factor, 3)
+    k5_busy_ms = device_ms(fac.launch_factor, 1)
+    reps = LDL_K6_REPS if fac.sym.depth < 20_000 else 3
+    k6_ms = cuda_ms(lambda: fac.solve(b), reps)
+    k6_busy_ms = device_ms(lambda: fac.solve(b), reps, name='ldl_solve_kernel')
+    bounds = ldl_bounds(fac, int(K_triu.nnz), peak_f64, peak_bytes)
+    row = dict(case=label, **_ldl_stats(fac), setup_and_first_factor_s=first_s,
+               symbolic_s=fac.symbolic_s, k5_launches=launches, k5_ms=k5_ms,
+               k5_busy_ms=k5_busy_ms, k5_bound_ms=bounds['k5'][0], k5_bound_by=bounds['k5'][1],
+               k6_launches_per_solve=1, k6_ms=k6_ms, k6_busy_ms=k6_busy_ms,
+               k6_bound_ms=bounds['k6'][0], k6_bound_by=bounds['k6'][1])
+    row['k6_library_ms'], row['k6_library_note'] = _k6_library(fac, b)
+    row['k5_library_ms'] = None
+    row['k5_library_note'] = "torch has no sparse LDL' or Cholesky factorization on CUDA"
+    if plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Lx, D, _, Ld = _ldl_plain_factor(fac)
+        torch.cuda.synchronize()
+        row['k5_plain_ms'] = (time.perf_counter() - t0) * 1e3
+        row['k5_err_L'] = _ldl_col_err(fac, Lx)
+        row['k5_err_D'] = float(((fac.D - D).abs() / torch.clamp(D.abs(), min=1.0)).max())
+        n_pos_plain = int((D > 0).sum())
+        if (row['k5_err_L'] > 1e-10 or row['k5_err_D'] > 1e-10
+                or fac.n_positive != n_pos_plain):
+            raise AssertionError(f"K5 {label}: L err {row['k5_err_L']}, D err "
+                                 f"{row['k5_err_D']}, n_positive {fac.n_positive} vs "
+                                 f"{n_pos_plain}")
+        del Ld, Lx, D
+        torch.cuda.empty_cache()
+        Lk = fac.dense_L()
+        perm = None if fac.perm is None else torch.as_tensor(fac.perm, device=DEV)
+        row['k6_plain_ms'] = cuda_ms(lambda: tldl.ldl_solve_plain(Lk, fac.Dinv, perm, b), 3)
+        row['k6_err_over_b'] = float(
+            (fac.solve(b) - tldl.ldl_solve_plain(Lk, fac.Dinv, perm, b)).abs().max()
+        ) / float(b.abs().max())
+        if row['k6_err_over_b'] > 1e-12:
+            raise AssertionError(f"K6 {label}: err {row['k6_err_over_b']} of ||b||")
+        del Lk
+    else:
+        row['k5_plain_ms'] = row['k6_plain_ms'] = None
+        row['plain_note'] = f'not measured: the dense copy of N = {fac.n} needs ' \
+                            f'{fac.n * fac.n * 8 / 1e9:.0f} GB'
+    del fac
+    torch.cuda.empty_cache()
+    print('ldl timing:', json.dumps(row), flush=True)
+    return row
+
+
+def ldl_main_path():
+    """The main path of the 'ldl' algebra: OSQP(algebra='ldl') on the
+    Portfolio at LDL_MAIN (seed 0, f64, eps 1e-3, default settings): setup,
+    a cold solve and two warm update(q * 1.01^k) steps, the K5 and K6 counts
+    set to 0 just before the setup and read after each step.  Every step
+    solved and passing its f64 host termination test; K5 called once per
+    factorization (1 + rho updates over setup and the cold solve, the rho
+    updates in each warm step), each call as many launches as the tree's
+    heights, K6 launched.  Then a profile of one more
+    warm step (cut to LDL_PROFILE_ITERS iterations), and one solve from zero
+    iterates (the adapted rho kept) with polishing=True."""
+    from osqp_tpu_torch import OSQP
+    from osqp_tpu_torch.ops import ldl as tldl
+
+    P, q, A, l, u = portfolio_family(*LDL_MAIN)
+    torch.cuda.synchronize()
+    tldl.factor_launches = tldl.factor_calls = tldl.solve_launches = 0
+    t0 = time.perf_counter()
+    o = OSQP(device=DEV, algebra='ldl')
+    o.setup(P=P, q=q, A=A, l=l, u=u, eps_abs=EPS, eps_rel=EPS, verbose=False)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    k5, k6 = [tldl.factor_calls], [tldl.solve_launches]
+    qs, results, times = [], [], []
+    for k in range(FAMILY_WARM + 1):
+        qs.append(q * 1.01 ** k)
+        t0 = time.perf_counter()
+        if k:
+            o.update(q=qs[k])
+        results.append(o.solve(raise_error=False))
+        times.append(time.perf_counter() - t0)
+        k5.append(tldl.factor_calls)
+        k6.append(tldl.solve_launches)
+    # K5 calls: setup and the cold solve together, then each warm step
+    k5_steps = [k5[1]] + [k5[i + 1] - k5[i] for i in range(1, len(results))]
+    k6_steps = [k6[i + 1] - k6[i] for i in range(len(results))]
+    statuses = [r.info.status for r in results]
+    if any(st != 'solved' for st in statuses):
+        raise AssertionError(f'ldl main path: statuses {statuses}')
+    rho_updates = [r.info.rho_updates for r in results]
+    want_k5 = [1 + rho_updates[0]] + rho_updates[1:]
+    fac = o._solver._kkt.factor
+    k5_launches = tldl.factor_launches
+    if (k5_steps != want_k5 or min(k6_steps) <= 0
+            or k5_launches != tldl.factor_calls * fac.sym.depth):
+        raise AssertionError(f'ldl main path: K5 calls {k5_steps} (want {want_k5}), '
+                             f'{k5_launches} K5 launches, K6 launches {k6_steps}')
+    ratios = [sparse_residual_check(P, A, l, u, qk, r.x, r.y, EPS) for qk, r in zip(qs, results)]
+    summary = dict(
+        n=P.shape[0], m=A.shape[0], nnz_A=int(A.nnz), **_ldl_stats(fac),
+        formats=[o._solver._sparse_fmt_P, o._solver._sparse_fmt_A],
+        setup_s=setup_s, setup_split=o._solver.setup_split, cold_solve_s=times[0],
+        warm_solve_s=times[1:], statuses=statuses, admm_iters=[r.info.iter for r in results],
+        rho_updates=rho_updates, host_syncs=[r.info.host_syncs for r in results],
+        k5_calls=k5_steps, k5_launches=k5_launches, k6_launches=k6_steps,
+        residual_over_bound=ratios,
+        gap_over_bound=[gap_over_bound(r.info, EPS) for r in results],
+        device_mem_gb=torch.cuda.memory_allocated() / 1e9)
+    # a profile of one more warm step, cut to LDL_PROFILE_ITERS iterations
+    o.update(q=q * 1.01 ** (FAMILY_WARM + 1))
+    o.update_settings(max_iter=LDL_PROFILE_ITERS)
+    r, wall_ms, kernels = _profiled(lambda: o.solve(raise_error=False))
+    o.update_settings(max_iter=4000)
+    prof = _profile_numbers(wall_ms, kernels)
+    busy = prof['device_busy_ms']
+    k6_busy = sum(e.self_device_time_total for e in kernels if 'ldl_solve' in e.key) / 1e3
+    k5_busy = sum(e.self_device_time_total for e in kernels if 'ldl_factor' in e.key) / 1e3
+    prof.update(status=r.info.status, iters=r.info.iter, rho_updates=r.info.rho_updates,
+                k6_share_of_busy=k6_busy / busy, k5_share_of_busy=k5_busy / busy)
+    summary['warm_profile'] = prof
+    # one solve from zero iterates with the polish
+    o.update(q=q)
+    o.update_settings(polishing=True, warm_starting=False)
+    t0 = time.perf_counter()
+    rp = o.solve(raise_error=False)
+    pol = dict(status=rp.info.status, status_polish=rp.info.status_polish, iters=rp.info.iter,
+               solve_s=time.perf_counter() - t0, polish_s=rp.info.polish_time)
+    if rp.info.status != 'solved':
+        raise AssertionError(f'ldl polish run: status {rp.info.status}')
+    if rp.info.status_polish == 1:
+        pol['residual_over_bound'] = sparse_residual_check(P, A, l, u, q, rp.x, rp.y, EPS)
+    summary['polish'] = pol
+    summary['k5_calls_total'] = tldl.factor_calls
+    summary['k5_launches_total'] = tldl.factor_launches
+    summary['k6_launches_total'] = tldl.solve_launches
+    print('ldl main path:', json.dumps(summary), flush=True)
+    del o
+    torch.cuda.empty_cache()
+    return summary
+
+
+def ldl_card_vs_cpu():
+    """The 'ldl' algebra on the card against the CPU (the plain versions)
+    in f64: the Portfolio at LDL_CHECK_PORTFOLIO and tests/problems.py's
+    feasibility and primal_infeasible families: statuses equal, iterations
+    within 5%, x within 1e-6 of ||x|| (the certificate where infeasible).
+    Then a non-convex P raises OSQP_NONCVX_ERROR on the card through K5's
+    inertia."""
+    sys.path.insert(0, str(ROOT / 'tests'))
+    import problems
+    from osqp_tpu_torch import OSQP
+    from osqp_tpu_torch.constants import SolverError
+    from osqp_tpu_torch.exceptions import OSQPException
+    from osqp_tpu_torch.ops import ldl as tldl
+
+    out = []
+    for name, build in (('portfolio', lambda: portfolio_family(*LDL_CHECK_PORTFOLIO)),
+                        ('feasibility', problems.feasibility),
+                        ('primal_infeasible', problems.primal_infeasible)):
+        data = build()
+        res = {}
+        for dev in (DEV, 'cpu'):
+            t0 = time.perf_counter()
+            o = OSQP(device=dev, algebra='ldl')
+            o.setup(*data, verbose=False)
+            res[dev] = (o.solve(raise_error=False), time.perf_counter() - t0)
+        (g, g_s), (c, c_s) = res[DEV], res['cpu']
+        if g.info.status != c.info.status or abs(g.info.iter - c.info.iter) > 0.05 * c.info.iter:
+            raise AssertionError(f'ldl {name}: card {g.info.status} in {g.info.iter}, cpu '
+                                 f'{c.info.status} in {c.info.iter}')
+        a, b = (g.x, c.x) if c.info.status == 'solved' else (g.prim_inf_cert, c.prim_inf_cert)
+        err = float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+        if not err <= 1e-6:
+            raise AssertionError(f'ldl {name}: card against cpu {err}')
+        out.append(dict(case=name, status=g.info.status, iters=[g.info.iter, c.info.iter],
+                        rho_updates=[g.info.rho_updates, c.info.rho_updates], rel_err=err,
+                        card_s=g_s, cpu_s=c_s))
+    before = tldl.factor_calls
+    try:
+        OSQP(device=DEV, algebra='ldl').setup(*problems.non_convex(), verbose=False)
+        raise AssertionError('ldl: a non-convex P did not raise on the card')
+    except OSQPException as e:
+        if e.args[0] != int(SolverError.OSQP_NONCVX_ERROR) or tldl.factor_calls != before + 1:
+            raise AssertionError(f'ldl non-convex: error {e.args}, K5 calls '
+                                 f'{tldl.factor_calls - before}')
+    out.append(dict(case='non_convex', raised='OSQP_NONCVX_ERROR', k5_calls=1))
+    print('ldl card vs cpu:', json.dumps(out), flush=True)
+    return out
+
+
+def ldl_phase(card):
+    """Phase 12: K5 and K6 checked and timed, the main path, the card
+    against the CPU.  Returns (timing rows, main path summary)."""
+    def kkt(prob):
+        P, _, A, _, _ = prob
+        return kkt_triu(P, A)
+
+    t_phase = time.perf_counter()
+    ldl_check(f'portfolio {LDL_CHECK_PORTFOLIO[0]}x{LDL_CHECK_PORTFOLIO[1]}',
+              kkt(portfolio_family(*LDL_CHECK_PORTFOLIO)))
+    ldl_check(f'banded n={LDL_CHECK_BANDED}', kkt(banded_qp(LDL_CHECK_BANDED)))
+    rows = [ldl_timing(card, f'portfolio {LDL_MAIN[0]}x{LDL_MAIN[1]}',
+                       kkt(portfolio_family(*LDL_MAIN))),
+            ldl_timing(card, f'banded n={LDL_TIME_BANDED}', kkt(banded_qp(LDL_TIME_BANDED)),
+                       plain=False)]
+    main = ldl_main_path()
+    ldl_card_vs_cpu()
+    print(f'ldl phase: {time.perf_counter() - t_phase:.1f} s', flush=True)
+    return rows, main
+
 
 def main():
     import argparse
@@ -2766,7 +3164,9 @@ def main():
 
     # 2. build every kernel from the checkout's sources, in parallel
     t0 = time.perf_counter()
-    libs = _build.build_all(['shared_epoch', 'dia_matvec', 'ell_matvec', 'bsr_matvec'])
+    libs = _build.build_all(['shared_epoch', 'dia_matvec', 'ell_matvec', 'bsr_matvec',
+                             'ldl_factor', 'ldl_solve'])
+    libs.append(_build.build_host('ldl_host'))  # the LDL' symbolic pass (g++)
     print(f'built {", ".join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s')
     for lib in libs:
         print(lib.with_suffix('.log').read_text().strip(), flush=True)
@@ -2898,7 +3298,12 @@ def main():
     _, halo_rows, banded_launches = parallel_phase(kind)
     mark('phase 11 (multi-device)')
 
-    # 12. the kernels line and the result line
+    # 12. the 'ldl' algebra: K5 and K6 against their plain versions and
+    # timed, its main path (the Portfolio at 10,000 x 100), card against CPU
+    ldl_rows, ldl_main = ldl_phase(kind)
+    mark('phase 12 (ldl algebra)')
+
+    # 13. the kernels line and the result line
     head = rows[0]
     dia_head = dia_rows[0]  # P @ v, float32, n = 2^20: the sparse path's widest operator
     modes = {}
@@ -2950,6 +3355,21 @@ def main():
             ms_over_library=head['ms_over_library'], export_launches=export_launches[name],
             **{k: head[k] for k in ('lens_mean', 'lanes_per_row', 'nblk_mean') if k in head},
             shape=f"{head['case']} m={head['m']} n={head['n']} {head['dtype']} ({path} path)"))
+    ldl_head = ldl_rows[0]  # the main path's KKT matrix
+    for name, k, replaces_host in (('ldl_factor', 'k5', 'osqp_tpu/native/ldl.cpp:52'),
+                                   ('ldl_solve', 'k6', 'osqp_tpu/native/ldl.cpp:102')):
+        kernels.append(dict(
+            name=name, route='cuda', source=f'osqp_tpu_torch/ops/csrc/{name}.cu', replaces=None,
+            replaces_host=replaces_host, launches=ldl_main[f'{k}_launches_total'],
+            **({'factor_calls': ldl_main['k5_calls_total']} if k == 'k5' else {}),
+            max_abs_err=ldl_head[f'{k}_err_L' if k == 'k5' else 'k6_err_over_b'],
+            ms=ldl_head[f'{k}_ms'], busy_ms=ldl_head[f'{k}_busy_ms'],
+            plain_ms=ldl_head[f'{k}_plain_ms'], bound_ms=ldl_head[f'{k}_bound_ms'],
+            bound_by=ldl_head[f'{k}_bound_by'], library_ms=ldl_head[f'{k}_library_ms'],
+            library_note=ldl_head[f'{k}_library_note'],
+            banded_ms=ldl_rows[1][f'{k}_ms'], banded_bound_ms=ldl_rows[1][f'{k}_bound_ms'],
+            shape=f"{ldl_head['case']} KKT: N={ldl_head['N']} nnz(L)={ldl_head['nnz_L']} "
+                  f"depth={ldl_head['depth']} f64"))
     print(card_line)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

@@ -55,6 +55,7 @@ from .utils.scaling_host import ruiz_scale_scipy
 
 SPARSE_AUTO_ENTRIES = 25_000_000
 VERSION = '1.0.0.dev0'  # the version the verbose header prints, as the JAX package's
+NAME = 'torch'  # the algebra's name (osqp_tpu_torch.algebra), the JAX package's 'jax'
 
 
 def capabilities() -> int:
@@ -63,6 +64,10 @@ def capabilities() -> int:
             | CapabilitiesType.OSQP_CAPABILITY_UPDATE_MATRICES
             | CapabilitiesType.OSQP_CAPABILITY_DERIVATIVES
             | CapabilitiesType.OSQP_CAPABILITY_CODEGEN)
+
+
+def solver_types():
+    return ('direct', 'indirect')
 
 
 def _poll_interrupt():
@@ -89,6 +94,8 @@ def _scale_csc(S, rowscale, colscale, mult=1.0):
 
 class Solver:
     """Single-QP solver handle: host state plus device tensors."""
+
+    ALGEBRA = NAME  # the verbose header's algebra
 
     def __init__(self, dtype=torch.float64, device=None, sparse='auto',
                  sparse_format='auto', dense_budget_bytes=spmv.DENSE_BUDGET_BYTES):
@@ -146,14 +153,20 @@ class Solver:
         self._iterates = core.Iterates(x=z((self.n,), **kw), z=z((self.m,), **kw),
                                        y=z((self.m,), **kw))
 
+    def _solver_name(self) -> str:
+        return 'indirect' if self._indirect else 'direct'
+
+    def _adapt_after(self, t0):
+        """The time-based first rho adaptation, ``(t0, seconds)``, or None:
+        this solver takes the fixed interval (the JAX package's jitted core
+        cannot read clocks mid-solve)."""
+        return None
+
     # -- low-level API -----------------------------------------------------
 
-    def setup(self, P, q, A, l, u, **settings):
-        t0 = time.perf_counter()
-        self._stg = OracleSettings(**settings)
-        dt = self._dtype
-        f = self._f()
-
+    def _ingest(self, P, q, A, l, u):
+        """Validate the data and keep its patterns and bounds; returns the
+        full symmetric P (CSC), A, q, l and u as float64."""
         P = sp.csc_matrix(P).astype(np.float64)
         A = sp.csc_matrix(A).astype(np.float64)
         n, m = P.shape[0], A.shape[0]
@@ -173,33 +186,46 @@ class Solver:
         self._nnz_P, self._nnz_A = P_full.nnz, A.nnz  # for the verbose header
         self._l_orig = l.copy()
         self._u_orig = u.copy()
+        return P_full, A, q, l, u
 
+    def _setup_sparse(self, P_full, A, q, l, u):
+        """Sparse mode's data: Ruiz on the host in scipy (the scaled P and A
+        kept as ``_P_s`` and ``_A_s``), then P and A as sparse operators,
+        each in the format its pattern picks, pinned for value updates."""
+        n, m = self.n, self.m
+        f = self._f()
+        if int(self._stg.scaling) > 0:
+            P_s, A_s, q_s, l_s, u_s, D, E, c = ruiz_scale_scipy(
+                P_full, A, q, l, u, int(self._stg.scaling))
+        else:
+            P_s, A_s, q_s, l_s, u_s = P_full, A, q, l, u
+            D, E, c = np.ones(n), np.ones(m), 1.0
+        self._P_s, self._A_s = P_s, A_s
+        fmt = dict(sparse_format=self._sparse_format, dense_budget_bytes=self._dense_budget)
+        self._sparse_fmt_P = spmv.choose_format(P_s, **fmt)
+        self._sparse_fmt_A = spmv.choose_format(A_s, **fmt)
+        self._data = core.QPData(
+            P=spmv.from_scipy(P_s, self._dtype, self._sparse_fmt_P, self._device),
+            q=self._t(q_s),
+            A=spmv.from_scipy(A_s, self._dtype, self._sparse_fmt_A, self._device),
+            l=self._t(l_s),
+            u=self._t(u_s),
+        )
+        self._scal = core.Scaling(
+            D=self._t(D), Dinv=self._t(1.0 / D), E=self._t(E),
+            Einv=self._t(1.0 / E if m else E), c=f(c), cinv=f(1.0 / c))
+
+    def setup(self, P, q, A, l, u, **settings):
+        t0 = time.perf_counter()
+        self._stg = OracleSettings(**settings)
+        P_full, A, q, l, u = self._ingest(P, q, A, l, u)
+        n, m = self.n, self.m
         self._is_sparse = self._sparse_opt is True or (
             self._sparse_opt == 'auto' and n * n + m * n > SPARSE_AUTO_ENTRIES)
         if self._is_sparse:
             # the sparse path is CG-only: a dense factorization would not fit
             self._stg.linsys_solver = int(LinsysSolverType.OSQP_INDIRECT_SOLVER)
-            if int(self._stg.scaling) > 0:
-                P_s, A_s, q_s, l_s, u_s, D, E, c = ruiz_scale_scipy(
-                    P_full, A, q, l, u, int(self._stg.scaling))
-            else:
-                P_s, A_s, q_s, l_s, u_s = P_full, A, q, l, u
-                D, E, c = np.ones(n), np.ones(m), 1.0
-            # pick each operator's format from its pattern and pin it, so
-            # value updates rebuild the same structure
-            fmt = dict(sparse_format=self._sparse_format, dense_budget_bytes=self._dense_budget)
-            self._sparse_fmt_P = spmv.choose_format(P_s, **fmt)
-            self._sparse_fmt_A = spmv.choose_format(A_s, **fmt)
-            self._data = core.QPData(
-                P=spmv.from_scipy(P_s, dt, self._sparse_fmt_P, self._device),
-                q=self._t(q_s),
-                A=spmv.from_scipy(A_s, dt, self._sparse_fmt_A, self._device),
-                l=self._t(l_s),
-                u=self._t(u_s),
-            )
-            self._scal = core.Scaling(
-                D=self._t(D), Dinv=self._t(1.0 / D), E=self._t(E),
-                Einv=self._t(1.0 / E if m else E), c=f(c), cinv=f(1.0 / c))
+            self._setup_sparse(P_full, A, q, l, u)
         else:
             Pj = self._t(P_full.toarray())
             Aj = self._t(A.toarray() if m else np.zeros((m, n)))
@@ -209,9 +235,13 @@ class Solver:
                                                          int(self._stg.scaling))
             else:
                 self._data = core.QPData(P=Pj, q=qj, A=Aj, l=lj, u=uj)
-                self._scal = core.identity_scaling(n, m, dt, self._device)
+                self._scal = core.identity_scaling(n, m, self._dtype, self._device)
             self._check_convexity()
+        self._finish_setup(t0)
 
+    def _finish_setup(self, t0):
+        """Constraint types and rho, the factorization, zero iterates and a
+        fresh info; ``t0`` is the setup's start on the host clock."""
         self._rho = core.make_rho_state(self._data.l, self._data.u, self._stg.rho,
                                         bool(self._stg.rho_is_vec))
         self._refactorize()
@@ -235,9 +265,11 @@ class Solver:
         verbose = bool(stg.verbose)
         cs = core_settings(stg, self._dtype)
         time_limit = float(stg.time_limit or 0.0)
+        adapt_after = self._adapt_after(t0)
         if not (time_limit > 0.0 or os.environ.get('OSQP_TPU_CHUNKED_SOLVE') == '1'):
             return core.solve_scaled(self._data, self._scal, cs, self._rho, self._factor,
-                                     self._iterates, indirect=self._indirect, verbose=verbose)
+                                     self._iterates, indirect=self._indirect, verbose=verbose,
+                                     adapt_after=adapt_after)
         ct = max(int(stg.check_termination), 1)
         chunk = max(10 * ct, 100)
         chunk -= chunk % ct
@@ -255,7 +287,7 @@ class Solver:
                 res = core.solve_scaled(self._data, self._scal,
                                         cs._replace(iter_cap=min(it0 + chunk, max_iter)),
                                         rho, factor, iterates, indirect=self._indirect,
-                                        verbose=verbose, it0=it0)
+                                        verbose=verbose, it0=it0, adapt_after=adapt_after)
                 it0 = int(res.iters)
                 for k in acc:
                     acc[k] += getattr(res, k)
@@ -304,9 +336,8 @@ class Solver:
             self._zero_iterates()
 
         if stg.verbose:
-            print_setup_header(self.n, self.m, self._nnz_P + self._nnz_A, stg, 'torch',
-                               'indirect' if self._indirect else 'direct', VERSION,
-                               self._device)
+            print_setup_header(self.n, self.m, self._nnz_P + self._nnz_A, stg, self.ALGEBRA,
+                               self._solver_name(), VERSION, self._device)
             print_iter_header()
 
         res = self._run_admm(t0)
@@ -354,6 +385,8 @@ class Solver:
                                                y=pol.y.to(self._dtype))
                 x_out = (scal64.D * pol.x).cpu().numpy()
                 y_out = (scal64.cinv * (scal64.E * pol.y)).cpu().numpy()
+            elif pol.x is None:
+                info.status_polish = -1  # the reduced KKT matrix had a zero pivot
             else:
                 info.status_polish = -1
                 # the line-search fallback family (ref _osqp.py:1817-1826):
@@ -472,8 +505,8 @@ class Solver:
             P_full = (P_triu + P_triu.T - sp.diags(P_triu.diagonal())).tocsc()
             self._nnz_P = P_full.nnz
             if self._is_sparse:
-                P_new = spmv.from_scipy(_scale_csc(P_full, D, D, float(self._scal.c)), dt,
-                                        self._sparse_fmt_P, self._device)
+                self._P_s = _scale_csc(P_full, D, D, float(self._scal.c))
+                P_new = spmv.from_scipy(self._P_s, dt, self._sparse_fmt_P, self._device)
             else:
                 Pj = self._t(P_full.toarray())
                 P_new = self._scal.c * (self._scal.D[:, None] * Pj * self._scal.D[None, :])
@@ -492,8 +525,8 @@ class Solver:
             self._nnz_A = A.nnz
             if self._is_sparse:
                 E = self._scal.E.cpu().numpy().astype(np.float64)
-                A_new = spmv.from_scipy(_scale_csc(A, E, D), dt, self._sparse_fmt_A,
-                                        self._device)
+                self._A_s = _scale_csc(A, E, D)
+                A_new = spmv.from_scipy(self._A_s, dt, self._sparse_fmt_A, self._device)
             else:
                 Aj = self._t(A.toarray())
                 A_new = self._scal.E[:, None] * Aj * self._scal.D[None, :]

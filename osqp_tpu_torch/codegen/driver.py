@@ -76,7 +76,19 @@ def export_workspace(solver):
     the scaled CSR operands from the pattern matrices).  The patterns are
     the exact ones the update path validates against: ``sp.triu`` of the
     full P could drop explicit stored zeros (reserved update slots) and
-    desynchronize the baked index maps from the user's data order."""
+    desynchronize the baked index maps from the user's data order.
+
+    The 'ldl' algebra exports its scaled P and A dense, as the JAX package
+    reads its numpy algebra's workspace."""
+    if getattr(solver, 'ALGEBRA', None) == 'ldl':
+        return dict(
+            n=solver.n, m=solver.m, P=solver._P_s.toarray(),
+            A=solver._A_s.toarray() if solver.m else np.zeros((0, solver.n)), is_sparse=False,
+            q=_f64(solver._data.q), l=_f64(solver._data.l), u=_f64(solver._data.u),
+            D=_f64(solver._scal.D), E=_f64(solver._scal.E), c=float(solver._scal.c),
+            rho_vec=_f64(solver._rho.rho_vec), settings=solver._stg,
+            P_triu=solver._P_triu_pattern.copy(), A_pattern=solver._A_pattern.copy(),
+        )
     sparse_mode = bool(solver._is_sparse)
     return dict(
         n=solver.n,
@@ -413,10 +425,13 @@ def export_aot(model, dtype=None):
     problem structure, scaling, rho state and factorization baked in as
     buffers.  It solves from zero iterates, in the model's working dtype;
     ``dtype`` is the dtype of the q, l and u it takes (default: the model's).
-    Returns an ``AotSolve``."""
+    Returns an ``AotSolve``.  The exported loop covers the 'torch' algebra;
+    an 'ldl' model raises ``ValueError``."""
     from ..solver.core_graph import ExportedSolve
 
     solver = model._solver
+    if getattr(solver, 'ALGEBRA', None) != 'torch':
+        raise ValueError("export_aot exports the 'torch' algebra's solve loop only")
     dt_in = solver._dtype if dtype is None else dtype
     module = ExportedSolve(solver)
     dev = solver._device

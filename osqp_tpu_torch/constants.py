@@ -109,8 +109,8 @@ _NAMED_CONSTANTS = {
 def constant(which: str, algebra: str | None = None):
     """The value of the solver constant named ``which``: a named value, or
     the integer of a status, error or capability code.  ``algebra`` is
-    accepted for the JAX package's signature and not used (the port has one
-    backend).  Raises ``RuntimeError`` for an unknown name."""
+    accepted for the JAX package's signature and not used (both algebras
+    share the constants).  Raises ``RuntimeError`` for an unknown name."""
     if which in _NAMED_CONSTANTS:
         return _NAMED_CONSTANTS[which]
     for enum in (SolverStatus, SolverError, CapabilitiesType):

@@ -4,9 +4,8 @@ The port's own copy of ``osqp_tpu/interface.py``'s ``OSQP``: problem
 ingestion and validation, settings with their deprecation shims and aliases,
 the solve / update lifecycle and warm starts, the adjoint and forward
 derivatives of the solution (``solver.derivatives``) and embedded code
-generation (``codegen``), over the single backend
-``osqp_tpu_torch.backend.Solver``.  There is one backend, so there is no
-algebra registry.
+generation (``codegen``), over the backend of the algebra chosen
+(``osqp_tpu_torch.algebra``: 'torch', the default, or 'ldl').
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import numpy as np
 import scipy.sparse as spa
 import torch
 
-from . import backend
+from .algebra import algebra_available, algebra_module, default_algebra
 from .constants import (
     CapabilitiesType,
     LinsysSolverType,
@@ -106,29 +105,41 @@ class OSQP:
     """Operator-splitting QP solver on torch tensors.
 
     Solves ``minimize 1/2 x'Px + q'x  subject to  l <= Ax <= u`` with the
-    public API of ``osqp_tpu.OSQP``.  ``dtype`` is the working precision
-    (float64 by default, float32 on request); ``device`` defaults to the
-    current CUDA device and raises without one; ``sparse`` ('auto', True,
-    False) selects sparse mode (sparse operators, PCG); ``sparse_format`` forces
-    an operator format and ``dense_budget_bytes`` bounds the dense format.
+    public API of ``osqp_tpu.OSQP``.  ``algebra`` is 'torch' (the default)
+    or 'ldl' (float64 sparse direct solves by an LDL' of the full KKT
+    matrix, the counterpart of the JAX package's 'numpy'; ``ordering``
+    'rcm' or 'natural' picks its fill-reducing ordering).  ``dtype`` is the
+    working precision (float64 by default, float32 on request, 'torch'
+    only); ``device`` defaults to the current CUDA device and raises without
+    one; ``sparse`` ('auto', True, False) selects the 'torch' algebra's
+    sparse mode (sparse operators, PCG); ``sparse_format`` forces an
+    operator format and ``dense_budget_bytes`` bounds the dense format.
     """
 
     def __init__(self, dtype=torch.float64, device=None, sparse='auto',
-                 sparse_format='auto', dense_budget_bytes=DENSE_BUDGET_BYTES):
+                 sparse_format='auto', dense_budget_bytes=DENSE_BUDGET_BYTES, algebra=None,
+                 ordering='rcm'):
         self.m = None
         self.n = None
+        self.algebra = default_algebra() if algebra is None else algebra
+        if not algebra_available(self.algebra):
+            raise RuntimeError(f'Algebra {self.algebra} not available')
+        self.ext = algebra_module(self.algebra)
         # the device is resolved here: no device and no CUDA raises at once
-        self._solver_kwargs = dict(dtype=dtype, device=resolve_device(device), sparse=sparse,
-                                   sparse_format=sparse_format,
-                                   dense_budget_bytes=dense_budget_bytes)
+        self._solver_kwargs = dict(dtype=dtype, device=resolve_device(device))
+        if self.algebra == 'ldl':
+            self._solver_kwargs.update(ordering=ordering)
+        else:
+            self._solver_kwargs.update(sparse=sparse, sparse_format=sparse_format,
+                                       dense_budget_bytes=dense_budget_bytes)
         self.settings = None
         self._solver = None
         self._cache = {}
 
     def __str__(self):
         if self._solver is None:
-            return 'Uninitialized OSQP (torch)'
-        return f'OSQP (torch, {self.solver_type})'
+            return f'Uninitialized OSQP with algebra={self.algebra}'
+        return f'OSQP with algebra={self.algebra} ({self.solver_type})'
 
     # -- error translation -------------------------------------------------
 
@@ -218,7 +229,7 @@ class OSQP:
 
     @property
     def capabilities(self) -> int:
-        return int(backend.capabilities())
+        return int(self.ext.capabilities())
 
     def has_capability(self, capability: str) -> bool:
         try:
@@ -240,7 +251,7 @@ class OSQP:
                 else None)
 
     def constant(self, which):
-        return constant(which)
+        return constant(which, algebra=self.algebra)
 
     # -- settings ----------------------------------------------------------
 
@@ -328,7 +339,7 @@ class OSQP:
         self.settings = OSQPSettings()
         self.update_settings(**settings)
 
-        self._solver = backend.Solver(**self._solver_kwargs)
+        self._solver = self.ext.Solver(**self._solver_kwargs)
         self.raises_error(self._solver.setup, P, q, A, l, u, **self.settings.as_dict())
         if 'rho' in settings:
             self.raises_error(self._solver.update_rho, settings['rho'])

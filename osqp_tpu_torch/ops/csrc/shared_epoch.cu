@@ -320,7 +320,11 @@ __device__ void stage_async(const T* __restrict__ W, int R, int Kd, T* sW, int L
 // memory, passed through sW in slabs of KS rows of k (or, given `staged`,
 // already all in sW); In a shared tile of row stride TB.  Threads whose rows
 // start at or past R compute nothing.  Every thread of the block calls it.
-template <typename T, int TC>
+// The sum runs over k in increasing order; `Ordered` (the check's products)
+// rounds each product and each sum on its own, as the plain check's loop
+// does (``shared_epoch.py::ordered_product``), where the iteration product
+// may contract to FMA.
+template <typename T, int TC, bool Ordered = false>
 __device__ void tile_product(const T* __restrict__ W, int R, int Kd, const T* In, int TB,
                              T* sW, int KS, int LDW, bool staged, int g, int tc,
                              T (&acc)[4][TC]) {
@@ -347,7 +351,10 @@ __device__ void tile_product(const T* __restrict__ W, int R, int Kd, const T* In
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < TC; ++j) acc[i][j] += w[i] * s[j];
+        for (int j = 0; j < TC; ++j) {
+          if constexpr (Ordered) acc[i][j] = add_rn(acc[i][j], mul_rn(w[i], s[j]));
+          else acc[i][j] += w[i] * s[j];
+        }
     }
   }
 }
@@ -633,9 +640,9 @@ __device__ __forceinline__ void check_phase(int n, int m, int B, int TB, int KS,
   for (int p = 0; p < passes; ++p) {
     const int u = tid + p * blockDim.x, g = u / per, tc = u % per;
     T acc[4][TC];
-    tile_product<T, TC>(a.CH, nm, n, sS, TB, sCH, KS, LDW, check_staged, g, tc, acc);  // [P x; A x]
+    tile_product<T, TC, true>(a.CH, nm, n, sS, TB, sCH, KS, LDW, check_staged, g, tc, acc);  // [P x; A x]
     store_acc<T, TC>(acc, sV, nm, TB, g, tc);
-    tile_product<T, TC>(a.At, n, m, sS + nm * TB, TB, sAt, KS, LDW, check_staged, g, tc, acc);  // A' y
+    tile_product<T, TC, true>(a.At, n, m, sS + nm * TB, TB, sAt, KS, LDW, check_staged, g, tc, acc);  // A' y
     store_acc<T, TC>(acc, sT, n, TB, g, tc);
   }
   __syncthreads();
@@ -643,7 +650,11 @@ __device__ __forceinline__ void check_phase(int n, int m, int B, int TB, int KS,
   // The column reductions, split into independent tasks (one thread per
   // task and column), each summing in feature order; their results meet in
   // sRed (slot s of column c at sRed[s * TB + c]) and one thread per column
-  // combines them.
+  // combines them.  Every sum and every formula of the check rounds each
+  // product, sum and difference on its own (mul_rn, add_rn, sub_rn), in the
+  // order the plain check writes it, so that status, obj and dobj equal the
+  // plain check's bit for bit: no FMA contraction moves a gap across
+  // eps_gap.
   const T eps = Limits<T>::eps();
   const T loose = T(1e30 * 1e-4);
   const T infty = T(1e30);
@@ -664,35 +675,35 @@ __device__ __forceinline__ void check_phase(int n, int m, int B, int TB, int KS,
         const T x = X[i * TB + c], px = PX[i * TB + c], aty = sT[i * TB + c];
         const T q = sQ[i * TB + c];
         const T dinv = __ldg(a.Dinv + i);
-        const T dv = px + q + aty;
-        dmax = nmax(dmax, absv(unscaled ? dinv * dv : dv));
-        quad2 += x * px;
-        qx += q * x;
-        xx += x * x;
-        atym = nmax(atym, absv(unscaled ? dinv * aty : aty));
-        pxm = nmax(pxm, absv(unscaled ? dinv * px : px));
-        qm = nmax(qm, absv(unscaled ? dinv * q : q));
+        const T dv = add_rn(add_rn(px, q), aty);
+        dmax = nmax(dmax, absv(unscaled ? mul_rn(dinv, dv) : dv));
+        quad2 = add_rn(quad2, mul_rn(x, px));
+        qx = add_rn(qx, mul_rn(q, x));
+        xx = add_rn(xx, mul_rn(x, x));
+        atym = nmax(atym, absv(unscaled ? mul_rn(dinv, aty) : aty));
+        pxm = nmax(pxm, absv(unscaled ? mul_rn(dinv, px) : px));
+        qm = nmax(qm, absv(unscaled ? mul_rn(dinv, q) : q));
       }
       red[0] = dmax; red[TB] = quad2; red[2 * TB] = qx; red[3 * TB] = xx;
       red[4 * TB] = atym; red[5 * TB] = pxm; red[6 * TB] = qm;
     } else if (task == 1) {
       T ymax = 0;
       for (int j = 0; j < m; ++j) {
-        ymax = nmax(ymax, absv(cinv * (__ldg(a.E + j) * Y[j * TB + c])));
+        ymax = nmax(ymax, absv(mul_rn(cinv, mul_rn(__ldg(a.E + j), Y[j * TB + c]))));
       }
-      const T y_tol = eps * ymax;
+      const T y_tol = mul_rn(eps, ymax);
       T sum_p = 0, sum_n = 0, mag_p = 0, mag_n = 0;
       for (int j = 0; j < m; ++j) {
         const T einv = __ldg(a.Einv + j);
-        T yu = cinv * (__ldg(a.E + j) * Y[j * TB + c]);
+        T yu = mul_rn(cinv, mul_rn(__ldg(a.E + j), Y[j * TB + c]));
         yu = absv(yu) > y_tol ? yu : T(0);
-        const T lu = einv * sL[j * TB + c], uu = einv * sU[j * TB + c];
-        const T sp = uu < loose ? uu * nmax(yu, T(0)) : T(0);
-        const T sn = lu > -loose ? lu * nmin(yu, T(0)) : T(0);
-        sum_p += sp;
-        sum_n += sn;
-        mag_p += absv(sp);
-        mag_n += absv(sn);
+        const T lu = mul_rn(einv, sL[j * TB + c]), uu = mul_rn(einv, sU[j * TB + c]);
+        const T sp = uu < loose ? mul_rn(uu, nmax(yu, T(0))) : T(0);
+        const T sn = lu > -loose ? mul_rn(lu, nmin(yu, T(0))) : T(0);
+        sum_p = add_rn(sum_p, sp);
+        sum_n = add_rn(sum_n, sn);
+        mag_p = add_rn(mag_p, absv(sp));
+        mag_n = add_rn(mag_n, absv(sn));
       }
       red[7 * TB] = sum_p; red[8 * TB] = sum_n; red[9 * TB] = mag_p; red[10 * TB] = mag_n;
     } else {
@@ -700,10 +711,10 @@ __device__ __forceinline__ void check_phase(int n, int m, int B, int TB, int KS,
       for (int j = 0; j < m; ++j) {
         const T einv = __ldg(a.Einv + j);
         const T ax = AX[j * TB + c], z = Z[j * TB + c];
-        const T pv = ax - z;
-        pmax = nmax(pmax, absv(unscaled ? einv * pv : pv));
-        axm = nmax(axm, absv(unscaled ? einv * ax : ax));
-        zm = nmax(zm, absv(unscaled ? einv * z : z));
+        const T pv = sub_rn(ax, z);
+        pmax = nmax(pmax, absv(unscaled ? mul_rn(einv, pv) : pv));
+        axm = nmax(axm, absv(unscaled ? mul_rn(einv, ax) : ax));
+        zm = nmax(zm, absv(unscaled ? mul_rn(einv, z) : z));
       }
       red[11 * TB] = pmax; red[12 * TB] = axm; red[13 * TB] = zm;
     }
@@ -720,20 +731,22 @@ __device__ __forceinline__ void check_phase(int n, int m, int B, int TB, int KS,
     const T atym = red[4 * TB], pxm = red[5 * TB], qm = red[6 * TB];
     const T sum_p = red[7 * TB], sum_n = red[8 * TB], mag_p = red[9 * TB], mag_n = red[10 * TB];
     const T pmax = red[11 * TB], axm = red[12 * TB], zm = red[13 * TB];
-    dua = unscaled ? cinv * dmax : dmax;
-    const T quad = T(0.5) * quad2;
-    obj = (quad + qx) * cinv;
+    dua = unscaled ? mul_rn(cinv, dmax) : dmax;
+    const T quad = mul_rn(T(0.5), quad2);
+    obj = mul_rn(add_rn(quad, qx), cinv);
     pri = pmax;
-    const bool noncvx_neg = (quad * cinv) < (T(-1e-12) * nmax(T(1), xx));
+    const bool noncvx_neg = mul_rn(quad, cinv) < mul_rn(T(-1e-12), nmax(T(1), xx));
     if (noncvx_neg) pri = T(2e30);
-    const T sup = sum_p + sum_n;
-    const T sup_mag = mag_p + mag_n;
-    dobj = -quad * cinv - sup;
-    gap_noise = eps * (sup_mag + absv(quad * cinv) + absv(qx) * cinv);
+    const T sup = add_rn(sum_p, sum_n);
+    const T sup_mag = add_rn(mag_p, mag_n);
+    dobj = sub_rn(mul_rn(-quad, cinv), sup);
+    gap_noise = mul_rn(eps, add_rn(add_rn(sup_mag, absv(mul_rn(quad, cinv))),
+                                   mul_rn(absv(qx), cinv)));
 
-    const T eps_pri = sc.eps_abs + sc.eps_rel * nmax(axm, zm);
+    const T eps_pri = add_rn(sc.eps_abs, mul_rn(sc.eps_rel, nmax(axm, zm)));
     const T scale_d = unscaled ? cinv : T(1);
-    const T eps_dua = sc.eps_abs + sc.eps_rel * scale_d * nmax(nmax(atym, pxm), qm);
+    const T eps_dua = add_rn(sc.eps_abs, mul_rn(mul_rn(sc.eps_rel, scale_d),
+                                                nmax(nmax(atym, pxm), qm)));
     noncvx = (pri > infty) || (dua > infty);
     pri_check = pri < eps_pri;
     dua_check = dua < eps_dua;
@@ -744,9 +757,9 @@ __device__ __forceinline__ void check_phase(int n, int m, int B, int TB, int KS,
   for (int p = 0; p < passes; ++p) {
     const int u = tid + p * blockDim.x, g = u / per, tc = u % per;
     T acc[4][TC];
-    tile_product<T, TC>(a.CH, nm, n, sdX, TB, sCH, KS, LDW, check_staged, g, tc, acc);  // [P dx; A dx]
+    tile_product<T, TC, true>(a.CH, nm, n, sdX, TB, sCH, KS, LDW, check_staged, g, tc, acc);  // [P dx; A dx]
     store_acc<T, TC>(acc, sV, nm, TB, g, tc);
-    tile_product<T, TC>(a.At, n, m, sdY, TB, sAt, KS, LDW, check_staged, g, tc, acc);  // A' dy
+    tile_product<T, TC, true>(a.At, n, m, sdY, TB, sAt, KS, LDW, check_staged, g, tc, acc);  // A' dy
     store_acc<T, TC>(acc, sT, n, TB, g, tc);
   }
   __syncthreads();
@@ -759,24 +772,25 @@ __device__ __forceinline__ void check_phase(int n, int m, int B, int TB, int KS,
       T ndy = 0, lhs = 0;
       for (int j = 0; j < m; ++j) {
         const T dy = sdY[j * TB + c];
-        ndy = nmax(ndy, absv(unscaled ? __ldg(a.E + j) * dy : dy));
-        lhs += sU[j * TB + c] * nmax(dy, T(0)) + sL[j * TB + c] * nmin(dy, T(0));
+        ndy = nmax(ndy, absv(unscaled ? mul_rn(__ldg(a.E + j), dy) : dy));
+        lhs = add_rn(lhs, add_rn(mul_rn(sU[j * TB + c], nmax(dy, T(0))),
+                                 mul_rn(sL[j * TB + c], nmin(dy, T(0)))));
       }
       red[0] = ndy; red[TB] = lhs;
     } else if (task == 1) {  // ||A' dy||
       T atdy = 0;
       for (int i = 0; i < n; ++i) {
         const T v = sT[i * TB + c];
-        atdy = nmax(atdy, absv(unscaled ? __ldg(a.Dinv + i) * v : v));
+        atdy = nmax(atdy, absv(unscaled ? mul_rn(__ldg(a.Dinv + i), v) : v));
       }
       red[2 * TB] = atdy;
     } else if (task == 2) {  // dual infeasibility: ||dx||, q'dx, ||P dx||
       T ndx = 0, qdx = 0, pdx = 0;
       for (int i = 0; i < n; ++i) {
         const T dx = sdX[i * TB + c], v = sV[i * TB + c];
-        ndx = nmax(ndx, absv(unscaled ? __ldg(a.D + i) * dx : dx));
-        qdx += sQ[i * TB + c] * dx;
-        pdx = nmax(pdx, absv(unscaled ? __ldg(a.Dinv + i) * v : v));
+        ndx = nmax(ndx, absv(unscaled ? mul_rn(__ldg(a.D + i), dx) : dx));
+        qdx = add_rn(qdx, mul_rn(sQ[i * TB + c], dx));
+        pdx = nmax(pdx, absv(unscaled ? mul_rn(__ldg(a.Dinv + i), v) : v));
       }
       red[3 * TB] = ndx; red[4 * TB] = qdx; red[5 * TB] = pdx;
     } else {
@@ -786,7 +800,7 @@ __device__ __forceinline__ void check_phase(int n, int m, int B, int TB, int KS,
       T hi = T(-INFINITY), lo = T(INFINITY);
       for (int j = 0; j < m; ++j) {
         T adx = sV[(n + j) * TB + c];
-        if (unscaled) adx = __ldg(a.Einv + j) * adx;
+        if (unscaled) adx = mul_rn(__ldg(a.Einv + j), adx);
         if (sU[j * TB + c] < loose) hi = fmax(hi, adx);
         if (sL[j * TB + c] > -loose) lo = fmin(lo, adx);
       }
@@ -801,16 +815,19 @@ __device__ __forceinline__ void check_phase(int n, int m, int B, int TB, int KS,
     const T ndx = red[3 * TB], qdx = red[4 * TB], pdx = red[5 * TB];
     const T hi = red[6 * TB], lo = red[7 * TB];
     const T ep = sc.eps_pinf;
-    const bool pinf = (ndy > ep) && (lhs < -ep * ndy) && (atdy < ep * ndy) && !pri_check;
+    const bool pinf = (ndy > ep) && (lhs < mul_rn(-ep, ndy)) && (atdy < mul_rn(ep, ndy)) &&
+                      !pri_check;
 
     const T ed = sc.eps_dinf;
     const T cost_scale = unscaled ? sc.c : T(1);
-    bool dinf = (ndx > ed) && (qdx < -cost_scale * ed * ndx) && (pdx < cost_scale * ed * ndx);
-    const bool bad = (hi > ed * ndx) || (lo < -ed * ndx);
+    bool dinf = (ndx > ed) && (qdx < mul_rn(mul_rn(-cost_scale, ed), ndx)) &&
+                (pdx < mul_rn(mul_rn(cost_scale, ed), ndx));
+    const bool bad = (hi > mul_rn(ed, ndx)) || (lo < mul_rn(-ed, ndx));
     dinf = dinf && !bad && !dua_check;
 
-    const T gap = obj - dobj;
-    const T eps_gap = sc.eps_abs + sc.eps_rel * nmax(absv(obj), absv(dobj)) + T(10) * gap_noise;
+    const T gap = sub_rn(obj, dobj);
+    const T eps_gap = add_rn(add_rn(sc.eps_abs, mul_rn(sc.eps_rel, nmax(absv(obj), absv(dobj)))),
+                             mul_rn(T(10), gap_noise));
     const bool gap_ok = !sc.check_dualgap || (absv(gap) <= Limits<T>::max() && absv(gap) < eps_gap);
 
     const int cand = noncvx ? kNonCvx

@@ -22,7 +22,11 @@ the kernel masks the ragged batch edge itself.
 product in the working dtype; ``'high'`` F and S split into bfloat16 hi and lo
 halves and ``F_hi S_hi + (F_hi S_lo + F_lo S_hi)``; ``'default'`` one product of
 the bfloat16 roundings.  Each bfloat16 product is exact in float32 and summed
-in float32, as on the TPU's matrix unit (and on Hopper's tensor cores).  The
+in float32, as on the TPU's matrix unit (``iteration_product``, the plain
+version's).  ``tc_iteration_product`` sums the same products as Hopper's
+tensor cores do (``tc_accumulate``), in the kernel's k order: it gives the
+kernel's iterates bit for bit, and the card's checks put it in the plain
+version's place where they hold the kernel to that.  The
 reduced modes are float32 only, as in the JAX package.  Only the iteration
 product changes: the check, residuals and certificates stay at full precision.
 On the card ``plan_tile`` picks the kernel's design: the CUDA cores for
@@ -79,6 +83,11 @@ _MAX_TILES = 4
 _WG_THREADS = 256
 _WG_COLS = 32
 _WG_PAD = (4, 6)
+# The tensor cores' float32 accumulation of bfloat16 products (tc_accumulate):
+# the k step of one wgmma or mma.sync, and the bits each term keeps below
+# the step's largest exponent.
+TC_K_STEP = 16
+TC_ALIGN_BITS = 25
 
 
 def iter_halves(iter_prec: str, dtype) -> int:
@@ -130,6 +139,58 @@ def _split(X):
     return hi, _bf16(X - hi)
 
 
+def tc_k_order(n: int, m: int, halves: int) -> np.ndarray:
+    """The order in which the kernel's reduced modes sum over the features
+    of S, in whole k steps of ``TC_K_STEP`` (-1 for a padding feature): the
+    wgmma design's internal order (``wg_positions``) where it runs, else
+    the natural order (the streamed ``mma.sync`` design)."""
+    N2 = n + 2 * m
+    if _wg_plan(n, m, halves, 4) is not None:
+        s_pos, _, n_s, _ = wg_positions(n, m, *_WG_PAD)
+        order = np.full(n_s, -1)
+        order[s_pos] = np.arange(N2)
+        return order
+    return np.concatenate([np.arange(N2), np.full(-N2 % TC_K_STEP, -1)])
+
+
+def _exponent(X):
+    """floor(log2 |X|) as float64, and -4096 for a zero."""
+    _, e = torch.frexp(X)
+    return torch.where(X != 0, (e - 1).to(torch.float64), -4096.0)
+
+
+def _pow2(e):
+    """2^e for integer-valued float64 ``e`` in the normal range, built from
+    its bits (torch.pow and exp2 need not be exact on the card)."""
+    return ((e.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def _to_f32_toward_zero(s):
+    r = s.to(torch.float32)
+    return torch.where(r.double().abs() > s.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def tc_accumulate(steps, R: int, C: int, device):
+    """``sum_t A_t @ B_t`` over the k steps ``(A_t (R, g), B_t (g, C))`` of
+    bfloat16 values, as Hopper's tensor cores accumulate it in float32
+    (wgmma and mma.sync): each step adds its products, exact, to the
+    accumulator, every term cut toward zero to a multiple of 2^(e - 25),
+    e the largest of the accumulator's exponent and the products' exponent
+    sums, and rounds the exact sum toward zero to float32.  Measured on an
+    H100 against K1's reduced modes, bit for bit (PERF.md, section 6).
+    Returns the float32 (R, C) result."""
+    acc = torch.zeros((R, C), dtype=torch.float64, device=device)
+    for A, B in steps:
+        a, b = A.double(), B.double().T
+        prod = a[:, None, :] * b[None, :, :]
+        e = torch.where(prod != 0, _exponent(a)[:, None, :] + _exponent(b)[None, :, :], -4096.0)
+        emax = torch.maximum(e.amax(dim=-1), _exponent(acc)).clamp(min=-990.0)
+        q = _pow2(emax - TC_ALIGN_BITS)
+        s = torch.trunc(acc / q) * q + (torch.trunc(prod / q[..., None]) * q[..., None]).sum(-1)
+        acc = _to_f32_toward_zero(s).double()
+    return acc.float()
+
+
 def iteration_product(F, iter_prec: str = 'highest'):
     """The function ``S -> F @ S`` at the precision ``iter_prec`` names, as
     ``_body_kernel``'s ``iter_mm`` computes it.  The bfloat16 operands are cast
@@ -147,6 +208,44 @@ def iteration_product(F, iter_prec: str = 'highest'):
         F_b = _bf16(F)
         return lambda S: F_b @ _bf16(S)
     return lambda S: F @ S
+
+
+def tc_iteration_product(F, iter_prec: str = 'highest'):
+    """``iteration_product`` with the reduced modes' bfloat16 products
+    summed as K1 sums them on Hopper's tensor cores (``tc_accumulate``, in
+    the kernel's k order ``tc_k_order``): 'default' one accumulation of the
+    bfloat16 products, 'high' the hi products in one accumulator and the two
+    cross products in another, k step by k step, F_hi S_lo then F_lo S_hi,
+    added in float32.  It gives the kernel's iterates bit for bit; the
+    card's checks put it in ``iteration_product``'s place.  'highest' is
+    ``iteration_product``'s."""
+    halves = iter_halves(iter_prec, F.dtype)
+    if not halves:
+        return iteration_product(F, iter_prec)
+    if iter_prec == 'high':
+        F_hi, F_lo = _split(F)
+    else:
+        F_b = _bf16(F)
+    R, N2 = F.shape
+    m = N2 - R
+    order = tc_k_order(R - m, m, halves) if 0 <= m <= R else np.arange(N2)
+    k_steps = [torch.as_tensor(order[t:t + TC_K_STEP], device=F.device)
+               for t in range(0, len(order), TC_K_STEP)]
+
+    def steps(Fh, Sh):  # (F[:, ks], S[ks]) a k step, zero where ks is padding
+        return [(torch.where(ks[None, :] >= 0, Fh[:, ks.clamp(min=0)], 0.0),
+                 torch.where(ks[:, None] >= 0, Sh[ks.clamp(min=0)], 0.0)) for ks in k_steps]
+
+    def product(S):
+        C = S.shape[1]
+        if iter_prec == 'default':
+            return tc_accumulate(steps(F_b, _bf16(S)), R, C, F.device)
+        S_hi, S_lo = _split(S)
+        hh = tc_accumulate(steps(F_hi, S_hi), R, C, F.device)
+        cross = zip(steps(F_hi, S_lo), steps(F_lo, S_hi))  # interleaved k step by k step
+        cx = tc_accumulate([pair for k_step in cross for pair in k_step], R, C, F.device)
+        return hh + cx
+    return product
 
 
 def affine_iterations(F, c0, rho_vec, rho_inv, L, U, S, dX, dY, alpha, K: int,
@@ -173,6 +272,25 @@ def affine_iterations(F, c0, rho_vec, rho_inv, L, U, S, dX, dY, alpha, K: int,
         dX = Xn - X
         dY = Yn - Y
     return S, dX, dY
+
+
+def ordered_product(W, S):
+    """``W @ S`` summed over k in increasing order, each product and each
+    sum rounded on its own: the check's products as the kernel computes them
+    (``tile_product<T, TC, true>``)."""
+    acc = W.new_zeros((W.shape[0], S.shape[1]))
+    for k in range(W.shape[1]):
+        acc = acc + W[:, k, None] * S[k]
+    return acc
+
+
+def ordered_sum(V):
+    """Column sums of ``V`` over its rows in increasing order, each addition
+    rounded on its own: the check's sums as the kernel computes them."""
+    acc = V.new_zeros(V.shape[1:])
+    for row in V:
+        acc = acc + row
+    return acc
 
 
 def shared_epoch_plain(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
@@ -208,6 +326,10 @@ def shared_epoch_plain(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
     Y = S[n + m:]
 
     # ---- 3. termination check ----
+    # Every product and sum below runs in the kernel's order, each operation
+    # rounded on its own (ordered_product, ordered_sum; the kernel's mul_rn
+    # and add_rn), so that status, obj and dobj equal the kernel's bit for
+    # bit on the same iterates.
     def colmax(V):
         return V.abs().amax(dim=0)
 
@@ -215,20 +337,20 @@ def shared_epoch_plain(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
         return colmax(Dinv[:, None] * V) if unscaled else colmax(V)
 
     Einv_c = Einv[:, None]
-    PAX = CH @ X
+    PAX = ordered_product(CH, X)
     PX = PAX[:n]
     AX = PAX[n:]
-    AtY = At @ Y
+    AtY = ordered_product(At, Y)
 
     pri_vec = AX - Z
     pri = colmax(Einv_c * pri_vec) if unscaled else colmax(pri_vec)
     dua_vec = PX + Q + AtY
     dua = cinv * colmax(Dinv[:, None] * dua_vec) if unscaled else colmax(dua_vec)
 
-    quad = 0.5 * (X * PX).sum(dim=0)
-    qx = (Q * X).sum(dim=0)
+    quad = 0.5 * ordered_sum(X * PX)
+    qx = ordered_sum(Q * X)
     obj = (quad + qx) * cinv
-    noncvx_neg = (quad * cinv) < (f(-1e-12) * torch.clamp((X * X).sum(dim=0), min=1.0))
+    noncvx_neg = (quad * cinv) < (f(-1e-12) * torch.clamp(ordered_sum(X * X), min=1.0))
     pri = torch.where(noncvx_neg, f(2 * OSQP_INFTY), pri)
 
     Yu = cinv * (E[:, None] * Y)
@@ -238,8 +360,8 @@ def shared_epoch_plain(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
     Uu = Einv_c * U
     sup_pos = torch.where(Uu < loose, Uu * torch.clamp(Yu, min=0.0), 0.0)
     sup_neg = torch.where(Lu > -loose, Lu * torch.clamp(Yu, max=0.0), 0.0)
-    sup = sup_pos.sum(dim=0) + sup_neg.sum(dim=0)
-    sup_mag = sup_pos.abs().sum(dim=0) + sup_neg.abs().sum(dim=0)
+    sup = ordered_sum(sup_pos) + ordered_sum(sup_neg)
+    sup_mag = ordered_sum(sup_pos.abs()) + ordered_sum(sup_neg.abs())
     dobj = -quad * cinv - sup
     gap_noise = eps * (sup_mag + (quad * cinv).abs() + qx.abs() * cinv)
 
@@ -256,19 +378,19 @@ def shared_epoch_plain(F, CH, At, rho_vec, rho_inv, D, Dinv, E, Einv,
 
     # primal infeasibility certificate
     norm_dY = colmax(E[:, None] * dY) if unscaled else colmax(dY)
-    lhs = (U * torch.clamp(dY, min=0.0) + L * torch.clamp(dY, max=0.0)).sum(dim=0)
-    AtdY_n = dscale(At @ dY)
+    lhs = ordered_sum(U * torch.clamp(dY, min=0.0) + L * torch.clamp(dY, max=0.0))
+    AtdY_n = dscale(ordered_product(At, dY))
     pinf = (norm_dY > eps_pinf) & (lhs < -eps_pinf * norm_dY) & (AtdY_n < eps_pinf * norm_dY)
     pinf = pinf & ~pri_check
 
     # dual infeasibility certificate
-    PAdX = CH @ dX
+    PAdX = ordered_product(CH, dX)
     PdX = PAdX[:n]
     AdX = PAdX[n:]
     norm_dX = colmax(D[:, None] * dX) if unscaled else colmax(dX)
     cost_scale = c if unscaled else f(1)
     dinf = norm_dX > eps_dinf
-    dinf &= (Q * dX).sum(dim=0) < (-cost_scale * eps_dinf * norm_dX)
+    dinf &= ordered_sum(Q * dX) < (-cost_scale * eps_dinf * norm_dX)
     dinf &= dscale(PdX) < cost_scale * eps_dinf * norm_dX
     if unscaled:
         AdX = Einv_c * AdX

@@ -21,6 +21,7 @@ uses ``@``, ``.T`` and ``.shape`` on them, the preconditioner ``diag()`` and
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -85,11 +86,14 @@ class Factor(NamedTuple):
     kkt_method='inv' (the shared engine): ``L`` is M itself (kept for the
     refinement term of the affine map) and ``Minv`` its inverse.
     Indirect mode: ``L`` and ``Minv`` None; ``diag`` = diag(M), the CG
-    preconditioner."""
+    preconditioner.  Sparse direct mode (the 'ldl' algebra): ``ldl`` the
+    LDL' factor of the full KKT matrix (``ldl_backend.KKTSystem``: ``solve``
+    and ``refactor(rho_inv_vec)``), the other fields None."""
 
     L: Optional[torch.Tensor]  # (n, n)
-    diag: torch.Tensor  # (n,)
+    diag: Optional[torch.Tensor]  # (n,)
     Minv: Optional[torch.Tensor]  # (n, n)
+    ldl: Optional[object] = None
 
 
 class Iterates(NamedTuple):
@@ -569,16 +573,21 @@ def admm_iteration(data: QPData, settings: CoreSettings, st: LoopState, indirect
     that lands mid-chunk leaves the previous chunk's iterates, which this
     chunk started from, intact."""
     rho_vec, rho_inv = st.rho.rho_vec, st.rho.rho_inv_vec
-    rhs, b2 = kkt_rhs(data, settings, st.x, st.z, st.y, rho_vec, rho_inv)
-    if indirect:
-        x_tilde, k, syncs = pcg_solve(data.P, data.A, settings.sigma, rho_vec, st.factor.diag,
-                                      rhs, st.xtld, st.cg_tol, settings.cg_max_iter)
-        st.cg_iters += k
-        st.host_syncs += syncs
+    if st.factor.ldl is not None:
+        x, z, y, delta_y, x_tilde = ldl_admm_step(data, settings, st.factor.ldl, st.x, st.z,
+                                                  st.y, st.delta_y, rho_vec, rho_inv)
     else:
-        x_tilde = _cho_solve(st.factor.L, rhs)
-    x, z, y, delta_y = admm_update(data, settings, st.x, st.z, st.y, st.delta_y, x_tilde, b2,
-                                   rho_vec, rho_inv)
+        rhs, b2 = kkt_rhs(data, settings, st.x, st.z, st.y, rho_vec, rho_inv)
+        if indirect:
+            x_tilde, k, syncs = pcg_solve(data.P, data.A, settings.sigma, rho_vec,
+                                          st.factor.diag, rhs, st.xtld, st.cg_tol,
+                                          settings.cg_max_iter)
+            st.cg_iters += k
+            st.host_syncs += syncs
+        else:
+            x_tilde = _cho_solve(st.factor.L, rhs)
+        x, z, y, delta_y = admm_update(data, settings, st.x, st.z, st.y, st.delta_y, x_tilde,
+                                       b2, rho_vec, rho_inv)
     st.delta_x = x - st.x
     st.x, st.z, st.y, st.xtld, st.delta_y = x, z, y, x_tilde, delta_y
 
@@ -612,6 +621,32 @@ def admm_update(data: QPData, settings: CoreSettings, x_prev, z_prev, y, delta_y
     return x, z, y + delta_y, delta_y
 
 
+def ldl_admm_step(data: QPData, settings: CoreSettings, kkt, x_prev, z_prev, y, delta_y,
+                  rho_vec, rho_inv):
+    """One ADMM step on the full KKT system, as the JAX package's numpy
+    algebra takes it (``_oracle/solver.py::_admm_step``): ``x_tilde, nu``
+    from one solve of ``[[P + sigma I, A'], [A, -diag(1/rho)]]`` with the
+    right-hand side ``[sigma x - q; z - y / rho]``, then ``z_tilde = z +
+    (nu - y) / rho``, the relaxation, the projection onto [l, u] and the
+    dual update.  Returns ``(x, z, y, delta_y, x_tilde)``."""
+    n = x_prev.shape[0]
+    alpha = settings.alpha
+    one_m_alpha = type(alpha)(1) - alpha
+    m = data.A.shape[0]
+    b1 = settings.sigma * x_prev - data.q
+    rhs = torch.cat([b1, z_prev - rho_inv * y]) if m else b1
+    sol = kkt.solve(rhs)
+    x_tilde = sol[:n]
+    x = alpha * x_tilde + one_m_alpha * x_prev
+    if not m:
+        return x, z_prev, y, delta_y, x_tilde
+    z_tilde = z_prev + rho_inv * (sol[n:] - y)
+    z_relax = alpha * z_tilde + one_m_alpha * z_prev
+    z = torch.clamp(z_relax + rho_inv * y, data.l, data.u)
+    delta_y = rho_vec * (z_relax - z)
+    return x, z, y + delta_y, delta_y, x_tilde
+
+
 def rho_estimate_fn(data: QPData, x, z, y, rho):
     """New rho from the relative residuals (ref _osqp.py:880-930), a 0-d
     tensor clipped to [RHO_MIN, RHO_MAX]."""
@@ -637,7 +672,9 @@ def _host(st: LoopState, *tensors):
 
 def adapt_rho(data: QPData, settings: CoreSettings, st: LoopState, indirect: bool):
     """Adaptive rho: estimate, and on a trigger rebuild the rho vector and
-    refactor (direct) or rebuild the preconditioner diagonal (indirect)."""
+    refactor (direct; sparse direct numerically on the same symbolic, one
+    host sync for the inertia) or rebuild the preconditioner diagonal
+    (indirect)."""
     f = np_dtype(st.x.dtype)
     rho_new = f(_host(st, rho_estimate_fn(data, st.x, st.z, st.y, st.rho.rho))[0])
     tol = settings.adaptive_rho_tolerance
@@ -647,7 +684,10 @@ def adapt_rho(data: QPData, settings: CoreSettings, st: LoopState, indirect: boo
         inv = torch.where(vec > 0, 1.0 / vec, 0.0)
         st.rho = RhoState(rho=clip_rho(rho_new, dtype), rho_vec=vec, rho_inv_vec=inv,
                           constr_type=st.rho.constr_type)
-        if indirect:
+        if st.factor.ldl is not None:
+            st.factor = st.factor._replace(ldl=st.factor.ldl.refactor(inv))
+            st.host_syncs += 1
+        elif indirect:
             st.factor = st.factor._replace(diag=build_M_diag(data.P, data.A, settings.sigma, vec))
         else:
             st.factor = factorize(data.P, data.A, settings.sigma, vec)
@@ -667,7 +707,7 @@ def _run_check(data, scal, settings, st: LoopState, approximate=False):
 
 def solve_scaled(data: QPData, scal: Scaling, settings: CoreSettings, rho: RhoState,
                  factor: Factor, iterates: Iterates, indirect: bool = False,
-                 verbose: bool = False, it0: int = 0) -> SolveResult:
+                 verbose: bool = False, it0: int = 0, adapt_after=None) -> SolveResult:
     """Run the ADMM loop on already-scaled data: epochs of
     ``check_termination`` iterations, each followed by the termination check,
     the CG-tolerance update (indirect mode) and, every adaptation interval,
@@ -677,7 +717,13 @@ def solve_scaled(data: QPData, scal: Scaling, settings: CoreSettings, rho: RhoSt
     ``it0`` is the iteration count a chunk starts from: the loop runs until
     ``settings.iter_cap``, and only a run that reaches ``settings.max_iter``
     unsolved takes the post-loop check.  ``verbose`` prints a row at every
-    check epoch whose iteration count is a multiple of ``PRINT_INTERVAL``."""
+    check epoch whose iteration count is a multiple of ``PRINT_INTERVAL``.
+
+    ``adapt_after`` ``(t0, seconds)`` takes the time-based first adaptation
+    of the numpy algebra (``adaptive_rho_fraction > 0``,
+    ``_oracle/solver.py:711-766``): the first adaptation comes at the first
+    check epoch past ``seconds`` after the host clock's ``t0``, and the
+    interval is then frozen at that iteration count."""
     n = data.P.shape[0]
     m = data.A.shape[0]
     x0 = iterates.x
@@ -730,8 +776,14 @@ def solve_scaled(data: QPData, scal: Scaling, settings: CoreSettings, rho: RhoSt
             st.cg_tol = f(new_cg_tol)
 
         epoch_idx = (st.it + epoch_len - 1) // max(epoch_len, 1)
-        if (settings.adaptive_rho and interval > 0 and epoch_idx % epochs_per_adapt == 0
-                and st.status == _UNSOLVED):
+        if not settings.adaptive_rho or st.status != _UNSOLVED:
+            pass
+        elif adapt_after is not None:
+            if do_check and time.perf_counter() - adapt_after[0] > adapt_after[1]:
+                adapt_rho(data, settings, st, indirect)
+                epochs_per_adapt = max(-(-max(st.it, ct) // max(epoch_len, 1)), 1)
+                adapt_after = None
+        elif interval > 0 and epoch_idx % epochs_per_adapt == 0:
             adapt_rho(data, settings, st, indirect)
 
     # Post-loop bookkeeping (ref _osqp.py:1248-1275): if no terminal status,

@@ -68,6 +68,11 @@ assert o._solver._sparse_fmt_P == o._solver._sparse_fmt_A == 'dia'
 assert o.solve(raise_error=True).info.status == 'solved'
 o.update_settings(polishing=True, verbose=True, time_limit=1e9)
 assert o.solve(raise_error=True).info.status_polish == 1
+o = osqp_tpu_torch.OSQP(device='cpu', algebra='ldl')
+o.setup(P=sp.triu(Pb, format='csc'), q=rng.standard_normal(nb), A=Ab, l=-1.5 * np.ones(nb),
+        u=1.5 * np.ones(nb), verbose=False, polishing=True)
+r = o.solve(raise_error=True)
+assert r.info.status == 'solved' and r.info.status_polish == 1
 Pb = np.stack([P, 2 * P, P + np.eye(n)])
 v = osqp_tpu_torch.BatchedOSQP(device='cpu').setup(Pb, q[:3], A, -np.ones(m), np.ones(m))
 assert v._engine == 'vmap' and (v.solve().info.status_val == 1).all()
@@ -92,7 +97,8 @@ def test_port_imports_and_solves_without_jax():
     """A fresh interpreter in which importing jax or osqp_tpu fails imports
     every module of the port, solves a tiny batch and a small banded QP in
     sparse mode on the CPU, then the banded QP again with polishing, verbose
-    printing and a time limit, a batch with per-instance P on the vmap
+    printing and a time limit, the banded QP with a polish on the 'ldl'
+    algebra (its symbolic pass built by g++), a batch with per-instance P on the vmap
     engine, a forward and backward pass of the nn layer and the banded QP
     on a 4-shard CPU mesh."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -194,8 +194,14 @@ def test_kernel_wgmma_design_on_cuda(B, n, m, iter_prec, monkeypatch):
     a time; where B is a multiple of 4 (332, 4100, 8196: rows 16-byte
     aligned, the last block partial) by cp.async.bulk with the partial
     block's pad columns zeroed, and the captures copy 16 bytes at a time;
-    8196 takes more than one wave of blocks.  K=1: statuses equal, values
-    within 1e-5 of the state's scale.  K=25: every status is the plain
+    8196 takes more than one wave of blocks.  The plain epoch here sums
+    the products as the tensor cores do (``tc_iteration_product``, the
+    kernel's k order): with the float32 sums of ``iteration_product`` the
+    iterates part in the last bit, and at B=4100 'high' a column at the
+    edge of its duality-gap test takes another status at K=1 (that bound
+    is ``test_kernel_reduced_modes_match_plain_on_cuda``'s).  K=1:
+    statuses equal, values within 1e-5 of the state's scale.  K=25: every
+    status is the plain
     check's of the kernel's own iterates and the state lies within 2e-4
     ('high') or 5e-2 ('default') of the plain version's, as for the
     streamed design; at n=32, m=48, where the internal order keeps the k
@@ -215,7 +221,9 @@ def test_kernel_wgmma_design_on_cuda(B, n, m, iter_prec, monkeypatch):
         got = tse.shared_epoch(*fixed, *st, sck)
         torch.cuda.synchronize()
         assert tse.launches == before + 1
-        want = tse.shared_epoch_plain(*fixed, *st, sck)
+        with monkeypatch.context() as mp:  # the plain epoch with the tensor cores' sums
+            mp.setattr(tse, 'iteration_product', tse.tc_iteration_product)
+            want = tse.shared_epoch_plain(*fixed, *st, sck)
         own = tse.shared_epoch_plain(*fixed, *got[:3], *st[3:], sck._replace(K=0))
         assert torch.equal(own[6], got[6])
         if K == 1:
@@ -232,6 +240,28 @@ def test_kernel_wgmma_design_on_cuda(B, n, m, iter_prec, monkeypatch):
         streamed = tse.shared_epoch(*fixed, *st, sck)
         torch.cuda.synchronize()
         assert all(_same(g, s) for g, s in zip(got, streamed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('iter_prec', ['high', 'default'])
+@pytest.mark.parametrize('B, n, m', [(4096, 32, 48), (333, 13, 19), (1024, 128, 192)])
+def test_tc_iteration_product_is_the_kernels_on_cuda(B, n, m, iter_prec):
+    """The model of the tensor cores' accumulation (``tc_iteration_product``,
+    in the kernel's k order) equals the kernel's reduced-mode product, bit
+    for bit, in the wgmma design (n = 32,
+    m = 48 and the padded n = 13, m = 19) and the streamed mma.sync one
+    (n = 128, m = 192): one iteration with alpha = 1 and c0 = 0 leaves the
+    product's x rows in the state."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    fixed, st, sc = _epoch_case(B, n, m, torch.float32)
+    fixed = (*fixed[:9], torch.zeros_like(fixed[9]), *fixed[10:])
+    st = (*st[:6], torch.full_like(st[6], tse.UNSOLVED))
+    sck = sc._replace(K=1, iter_prec=iter_prec, alpha=type(sc.alpha)(1.0))
+    got = tse.shared_epoch(*fixed, *st, sck)
+    torch.cuda.synchronize()
+    want = tse.tc_iteration_product(fixed[0], iter_prec)(st[0])[:n]
+    assert torch.equal(got[0][:n], want)
 
 
 @pytest.mark.cuda
