@@ -152,14 +152,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    n = 4,096 (an elimination-tree chain): L and D within 1e-10 of each
    column's max-norm, n_positive equal, the solve within 1e-12 of
    ||b||_inf, two runs of each bit-identical; then each kernel's device ms,
-   launches, bound, plain ms and the time of torch's sparse-CSR triangular
-   solve at the Portfolio 10,000 x 100 and the banded n = 2^16 KKT
-   matrices; the main path, OSQP(algebra='ldl') on the Portfolio at
-   10,000 x 100 (seed 0, f64, eps 1e-3): setup (Ruiz, symbolic pass and K5
-   timed apart), a cold solve and two warm update(q) steps, every step
-   solved and passing its f64 host termination test, K5 called once per
-   factorization and K6 launched, a profile of one more warm step, and a
-   polished solve from zero iterates; then the card against the CPU (the
+   launches (K5's equal to the symbolic pass's count), bounds, plain ms,
+   the supernodes (count, columns, share of nnz(L)), the time of torch's
+   sparse-CSR triangular solve and of torch.linalg.ldl_factor on the dense
+   KKT matrix (a near relative of K5: it pivots) at the Portfolio 10,000 x
+   100 and the banded n = 2^16 KKT matrices; the main path,
+   OSQP(algebra='ldl') on the Portfolio at 10,000 x 100 (seed 0, f64, eps
+   1e-3): setup (Ruiz, symbolic pass and K5 timed apart), a cold solve and
+   two warm update(q) steps, every step solved and passing its f64 host
+   termination test, K5 called once per factorization in the launches the
+   symbolic pass states and K6 launched, a profile of one more warm step,
+   and a polished solve from zero iterates; then the card against the CPU (the
    Portfolio at 2,000 x 20, tests/problems.py's feasibility and
    primal_infeasible: statuses, iterations within 5%, x within 1e-6) and a
    non-convex P raising OSQP_NONCVX_ERROR through K5's inertia;
@@ -2773,28 +2776,57 @@ LDL_PROFILE_ITERS = 50  # the profiled warm step's cut (a warm step takes about 
 
 
 def _ldl_stats(fac):
-    """Size of a factor: N, nnz(L), the tree's depth, the ordering and the
-    factorization's multiply-adds, sum_j Lnz_j (Lnz_j + 1) / 2."""
+    """Size of a factor: N, nnz(L), the tree's depth, the ordering, the
+    factorization's multiply-adds, sum_j Lnz_j (Lnz_j + 1) / 2, the
+    supernodes (count, columns, their share of nnz(L)) and K5's launches."""
     lnz = np.diff(fac.Lp).astype(np.float64)
-    return dict(N=fac.n, nnz_L=fac.sym.nnz_L, depth=fac.sym.depth,
+    sym = fac.sym
+    w, rows = sym.sn[:, 1].astype(np.float64), sym.sn[:, 2].astype(np.float64)
+    return dict(N=fac.n, nnz_L=sym.nnz_L, depth=sym.depth,
                 ordering='natural' if fac.perm is None else 'rcm',
-                multiply_adds=float(np.sum(lnz * (lnz + 1) / 2)))
+                multiply_adds=float(np.sum(lnz * (lnz + 1) / 2)), supernodes=sym.nsup,
+                supernode_columns=int(w.sum()),
+                supernode_share_of_nnz_L=float(np.sum(w * rows - w * (w + 1) / 2))
+                / max(sym.nnz_L, 1), k5_launches_stated=sym.k5_launches)
 
 
 def ldl_bounds(fac, nnz_K, peak_f64, peak_bytes):
     """K5's and K6's bounds in ms.  K5: its multiply-adds (2 operations
     each) at the f64 peak, or its bytes once (K's values, L's indices in
     both layouts read; L's values in both layouts, D and 1/D written),
-    whichever is larger.  K6: L's values and indices read once per pass
-    plus the vectors (b, x, y, out, 1/D, the permutation) at the memory
-    rate."""
+    whichever is larger.  K6: L's values read once per pass, 8 bytes an
+    entry, plus the vectors (b, x, y, out, 1/D, the permutation) at the
+    memory rate: index bytes belong to a layout, not to the work.
+    ``k6_with_indices``: the same with L's index bytes read too (4 an entry),
+    the bound the row-by-row design stated."""
     st = _ldl_stats(fac)
     nnz, N = st['nnz_L'], st['N']
     k5_ops = 2 * st['multiply_adds'] / peak_f64 * 1e3
     k5_bytes = (nnz_K * 12 + nnz * 8 + nnz * 16 + N * 16) / peak_bytes * 1e3
-    k6_bytes = (2 * nnz * 12 + N * 48) / peak_bytes * 1e3
+    k6_bytes = (2 * nnz * 8 + N * 48) / peak_bytes * 1e3
     return dict(k5=(max(k5_ops, k5_bytes), 'operations' if k5_ops >= k5_bytes else 'bytes'),
-                k6=(k6_bytes, 'bytes'))
+                k6=(k6_bytes, 'bytes'), k6_with_indices=(2 * nnz * 12 + N * 48) / peak_bytes * 1e3)
+
+
+def _k5_library(fac):
+    """torch.linalg.ldl_factor of the dense KKT matrix on the card, timed
+    with CUDA events: a near relative of K5, not the same function (it
+    pivots, Bunch-Kaufman, and fills the whole dense triangle); the port
+    never calls it.  ``(ms, note)``, or ``(None, reason)``."""
+    from osqp_tpu_torch.ops import ldl as tldl
+
+    s = fac.sym
+    try:
+        K = tldl.dense_kkt(torch.as_tensor(s.Ap, device=DEV), torch.as_tensor(s.Ai, device=DEV),
+                           fac.Ax, fac.n)
+        ms = cuda_ms(lambda: torch.linalg.ldl_factor(K), 1)
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+        return None, f'torch.linalg.ldl_factor of the dense KKT: {e}'[:200]
+    finally:
+        K = None
+        torch.cuda.empty_cache()
+    return ms, ('torch.linalg.ldl_factor of the dense KKT matrix (Bunch-Kaufman pivoting, '
+                'the whole dense triangle): a near relative, not the same function')
 
 
 def _ldl_plain_factor(fac):
@@ -2917,19 +2949,29 @@ def ldl_timing(card, label, K_triu, plain=True):
     launches = tldl.factor_launches - launches
     b = torch.as_tensor(np.random.default_rng(1).standard_normal(fac.n), device=DEV)
     k5_ms = cuda_ms(fac.launch_factor, 3)
-    k5_busy_ms = device_ms(fac.launch_factor, 1)
+    # three calls a profile: a profile of one call of a few long launches
+    # (the banded chain) has come back with no device record at all
+    k5_busy_ms = device_ms(fac.launch_factor, 3)
     reps = LDL_K6_REPS if fac.sym.depth < 20_000 else 3
     k6_ms = cuda_ms(lambda: fac.solve(b), reps)
     k6_busy_ms = device_ms(lambda: fac.solve(b), reps, name='ldl_solve_kernel')
     bounds = ldl_bounds(fac, int(K_triu.nnz), peak_f64, peak_bytes)
+    if launches != fac.sym.k5_launches:
+        raise AssertionError(f'K5 {label}: {launches} launches, the symbolic pass states '
+                             f'{fac.sym.k5_launches}')
     row = dict(case=label, **_ldl_stats(fac), setup_and_first_factor_s=first_s,
                symbolic_s=fac.symbolic_s, k5_launches=launches, k5_ms=k5_ms,
                k5_busy_ms=k5_busy_ms, k5_bound_ms=bounds['k5'][0], k5_bound_by=bounds['k5'][1],
                k6_launches_per_solve=1, k6_ms=k6_ms, k6_busy_ms=k6_busy_ms,
-               k6_bound_ms=bounds['k6'][0], k6_bound_by=bounds['k6'][1])
+               k6_bound_ms=bounds['k6'][0], k6_bound_by=bounds['k6'][1],
+               k6_bound_with_indices_ms=bounds['k6_with_indices'])
     row['k6_library_ms'], row['k6_library_note'] = _k6_library(fac, b)
-    row['k5_library_ms'] = None
-    row['k5_library_note'] = "torch has no sparse LDL' or Cholesky factorization on CUDA"
+    if plain:
+        row['k5_library_ms'], row['k5_library_note'] = _k5_library(fac)
+    else:
+        row['k5_library_ms'] = None
+        row['k5_library_note'] = (f'not measured: the dense KKT of N = {fac.n} needs '
+                                  f'{fac.n * fac.n * 8 / 1e9:.0f} GB')
     if plain:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2972,9 +3014,9 @@ def ldl_main_path():
     set to 0 just before the setup and read after each step.  Every step
     solved and passing its f64 host termination test; K5 called once per
     factorization (1 + rho updates over setup and the cold solve, the rho
-    updates in each warm step), each call as many launches as the tree's
-    heights, K6 launched.  Then a profile of one more
-    warm step (cut to LDL_PROFILE_ITERS iterations), and one solve from zero
+    updates in each warm step), each call as many launches as the symbolic
+    pass states (``Symbolic.k5_launches``), K6 launched.  Then a profile of
+    one more warm step (cut to LDL_PROFILE_ITERS iterations), and one solve from zero
     iterates (the adapted rho kept) with polishing=True."""
     from osqp_tpu_torch import OSQP
     from osqp_tpu_torch.ops import ldl as tldl
@@ -3008,8 +3050,10 @@ def ldl_main_path():
     want_k5 = [1 + rho_updates[0]] + rho_updates[1:]
     fac = o._solver._kkt.factor
     k5_launches = tldl.factor_launches
+    # every call so far factors the same pattern: the symbolic pass's
+    # count, once per call
     if (k5_steps != want_k5 or min(k6_steps) <= 0
-            or k5_launches != tldl.factor_calls * fac.sym.depth):
+            or k5_launches != tldl.factor_calls * fac.sym.k5_launches):
         raise AssertionError(f'ldl main path: K5 calls {k5_steps} (want {want_k5}), '
                              f'{k5_launches} K5 launches, K6 launches {k6_steps}')
     ratios = [sparse_residual_check(P, A, l, u, qk, r.x, r.y, EPS) for qk, r in zip(qs, results)]
@@ -3361,7 +3405,9 @@ def main():
         kernels.append(dict(
             name=name, route='cuda', source=f'osqp_tpu_torch/ops/csrc/{name}.cu', replaces=None,
             replaces_host=replaces_host, launches=ldl_main[f'{k}_launches_total'],
-            **({'factor_calls': ldl_main['k5_calls_total']} if k == 'k5' else {}),
+            **({'factor_calls': ldl_main['k5_calls_total'],
+                'launches_per_factor': ldl_head['k5_launches']} if k == 'k5'
+               else {'bound_with_indices_ms': ldl_head['k6_bound_with_indices_ms']}),
             max_abs_err=ldl_head[f'{k}_err_L' if k == 'k5' else 'k6_err_over_b'],
             ms=ldl_head[f'{k}_ms'], busy_ms=ldl_head[f'{k}_busy_ms'],
             plain_ms=ldl_head[f'{k}_plain_ms'], bound_ms=ldl_head[f'{k}_bound_ms'],
@@ -3369,7 +3415,8 @@ def main():
             library_note=ldl_head[f'{k}_library_note'],
             banded_ms=ldl_rows[1][f'{k}_ms'], banded_bound_ms=ldl_rows[1][f'{k}_bound_ms'],
             shape=f"{ldl_head['case']} KKT: N={ldl_head['N']} nnz(L)={ldl_head['nnz_L']} "
-                  f"depth={ldl_head['depth']} f64"))
+                  f"depth={ldl_head['depth']} supernodes={ldl_head['supernodes']} "
+                  f"({ldl_head['supernode_columns']} columns) f64"))
     print(card_line)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
