@@ -135,7 +135,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every step solved and passing the f64 host termination test, K2 (the
    local products on each shard's halo window) launched; the same problem
    through big_qp_setup and big_qp_solve (row blocks on cuSPARSE): solved,
-   the host test, banded's iteration count and x within 1e-8; a profile of
+   the host test, banded's iteration count and x within 1e-8, and a second
+   cold solve that says whether two runs are bit-identical; a profile of
    one warm solve of each; K2 on an interior shard's halo window
    (L = 2^18, on that shard's device) for P, A and A' in f32 and f64, bit
    for bit against its plain version, P's with device times (L2 warm and
@@ -145,6 +146,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    m = 48 (phase 4b's plant family), f64, eps 1e-3: every instance solved,
    the f64 host check, 64 instances near the port's f64 CPU optimum,
    solves/s.  Wall time, CG steps and host syncs of each solve;
+11b. the same paths on a mesh over processes (osqp_tpu_torch.parallel.
+   distributed), each process a child of this script (``--mesh-worker``)
+   with a wall limit past which it is killed and the run fails: two gloo
+   processes sharing cuda:0, two shards each (J = 4; gloo moves the bytes
+   of every exchange through pinned host memory), run phase 11's banded
+   setup, cold solve and 3-step rollout at n = 2^20 (K2 launched in each
+   process, its count printed per process), big_qp_setup and big_qp_solve,
+   and dp_mp_solve on (2, 2) with dp across the processes at B = 4096:
+   every step and instance solved, the f64 host check, and every process's
+   counts, host syncs and x/y phase 11's bit for bit (bigqp: bit for bit
+   where two one-process runs are, else within 1e-12 of ||x|| with equal
+   counts; the line says which held); then one NCCL process a card (one on
+   a one-card machine), two shards each, the banded family at n = 2^16:
+   the one-process mesh's counts, the world size printed.  Wall, CG steps,
+   host syncs and wall per CG step of each solve beside phase 11's, with
+   the card's name and power limit;
 12. the 'ldl' algebra (float64 sparse direct solves by an LDL' of the full
    KKT matrix): K5 (ldl_factor, the numeric factorization) and K6
    (ldl_solve, the triangular solves) against their plain versions on the
@@ -167,7 +184,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    primal_infeasible: statuses, iterations within 5%, x within 1e-6) and a
    non-convex P raising OSQP_NONCVX_ERROR through K5's inertia;
 13. a JSON line with each kernel's numbers (with its launches inside the
-   exported programs and on the distributed banded path), then the result
+   exported programs and on the distributed banded path, in one process and
+   in each process of phase 11b), then the result
    line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  It needs the repository's
@@ -179,6 +197,7 @@ builds K1, runs only phase 3 and prints no result line.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2668,16 +2687,23 @@ def dpmp_path():
     # the first two epochs again under the profiler
     _, prof_ms, kernels = _profiled(lambda: par.dp_mp_solve(mesh, P, q, A, l, u, eps_abs=EPS,
                                                              eps_rel=EPS, max_iter=50))
-    return dict(B=B, n=n, m=m, dtype='float64', eps=EPS, mesh=mesh.shape, wall_s=wall,
-                profile_50_iterations=_profile_numbers(prof_ms, kernels),
-                solves_per_s=B / wall, mean_iters=float(iters.mean()), max_iters=int(iters.max()),
-                rho_updates=int(res.rho_updates.sum()), host_syncs=res.host_syncs,
-                residual_over_bound=residual_check(run), x_off_f64_optimum=reference_check(run))
+    summary = dict(B=B, n=n, m=m, dtype='float64', eps=EPS, mesh=mesh.shape, wall_s=wall,
+                   profile_50_iterations=_profile_numbers(prof_ms, kernels),
+                   solves_per_s=B / wall, mean_iters=float(iters.mean()),
+                   max_iters=int(iters.max()), rho_updates=int(res.rho_updates.sum()),
+                   host_syncs=res.host_syncs, residual_over_bound=residual_check(run),
+                   x_off_f64_optimum=reference_check(run))
+    return summary, _dpmp_fields(res)
+
+
+def _dpmp_fields(res):
+    """What phase 11b compares of a dp_mp_solve result, on the host."""
+    return {k: getattr(res, k).cpu() for k in ('x', 'y', 'status', 'iters', 'rho_updates')}
 
 
 def parallel_phase(card):
     """Phase 11.  Returns (summary, K2 rows on the halo window, K2's launches
-    on the distributed banded path)."""
+    on the distributed banded path, the results phase 11b compares with)."""
     from osqp_tpu_torch import parallel as par
     from osqp_tpu_torch.ops import dia_matvec as dm
 
@@ -2725,10 +2751,24 @@ def parallel_phase(card):
     if big.iters != cold.iters or not dx <= tol:
         raise AssertionError(f'bigqp {big.iters} iterations vs banded {cold.iters}, x differs by '
                              f'{dx} (tolerance {tol})')
+    # a second cold solve: are two one-process runs on the card (cuSPARSE)
+    # bit-identical?  Phase 11b holds the process mesh to bits if so
+    again = par.big_qp_solve(mesh, gd, **kw)
+    deterministic = torch.equal(again.x, big.x) and torch.equal(again.y, big.y)
+    del again
     bigqp = dict(n=n, J=PAR_J, setup_s=big_setup_s, cold=_solve_row(big, big_s),
-                 x_diff_vs_banded=dx, residual_over_bound=sparse_residual_check(
+                 x_diff_vs_banded=dx, two_runs_bit_identical=deterministic,
+                 residual_over_bound=sparse_residual_check(
                      P, A, l, u, q, big.x.cpu().numpy(), big.y.cpu().numpy(), EPS))
     print('bigqp (J = 4, n = 2^20):', json.dumps(bigqp), flush=True)
+    # what phase 11b holds the process mesh to, on the host
+    ref = dict(banded=dict(cold=banded['cold'], rollout_s=roll_s,
+                           rollout_iters=banded['rollout_iters'],
+                           rollout_cg_steps=banded['rollout_cg_steps'],
+                           rollout_host_syncs=banded['rollout_host_syncs'],
+                           x=[cold.x.cpu(), *roll.x.cpu()], y=[cold.y.cpu(), *roll.y.cpu()]),
+               bigqp=dict(cold=bigqp['cold'], deterministic=deterministic, x=big.x.cpu(),
+                          y=big.y.cpu()))
 
     # one warm solve of each under the profiler: banded from the rollout's
     # carries on its last q, bigqp from its own solution
@@ -2755,13 +2795,273 @@ def parallel_phase(card):
     torch.cuda.empty_cache()
     versus = parallel_card_vs_cpu()
     print('parallel card vs cpu:', json.dumps(versus), flush=True)
-    dpmp = dpmp_path()
+    dpmp, ref['dp_mp'] = dpmp_path()
+    ref['dp_mp'].update(wall_s=dpmp['wall_s'], host_syncs=dpmp['host_syncs'])
     print('dp_mp (2 x 2, B = 4096):', json.dumps(dpmp), flush=True)
     summary = dict(phase_s=time.perf_counter() - t_phase, devices=devs,
                    distinct_devices=len(set(devs)), banded=banded, bigqp=bigqp,
                    card_vs_cpu=versus, dp_mp=dpmp)
     print(f'multi-device phase: {summary["phase_s"]:.1f} s', flush=True)
-    return summary, k2_rows, banded_launches
+    return summary, k2_rows, banded_launches, ref
+
+# ---------------------------------------------------------------------------
+# 11b. the mesh over processes: children of this script, over torch.distributed
+# ---------------------------------------------------------------------------
+
+PROCS_GLOO = 2          # gloo processes sharing cuda:0, PAR_J / 2 shards each
+PROCS_NCCL_N = 1 << 16  # the banded family's size for one NCCL process a card
+PROCS_WALL_S = 300.0    # a child still running past this is killed and fails the run
+PROCS_GROUP_TIMEOUT_S = 120.0
+
+
+def mesh_worker(backend, rank, world, init, out_dir):
+    """One child of phase 11b: joins the group, runs its paths, writes what
+    phase 11b compares to ``out_dir/rank<rank>.pt``.  A small solve on a
+    one-process mesh first takes the process's first-use costs (CUDA
+    context, cuBLAS, K2's library) out of the timed solves."""
+    from osqp_tpu_torch import parallel as par
+
+    torch.set_num_threads(1)
+    par.initialize(backend, init_method=init, rank=rank, world_size=world,
+                   timeout_s=PROCS_GROUP_TIMEOUT_S)
+    try:
+        own = torch.device('cuda', torch.cuda.current_device())  # LOCAL_RANK's under NCCL
+        P, q, A, l, u = banded_qp(4096, seed=0)
+        par.banded_qp_solve(par.make_mesh((2,), ('mp',), device=own),
+                            par.banded_qp_setup(P, q, A, l, u, 2, device=own), max_iter=25)
+        out = (_procs_gloo_paths if backend == 'gloo' else _procs_nccl_path)()
+        out['world'] = par.process_count()
+    finally:
+        par.shutdown()
+    torch.save(out, Path(out_dir) / f'rank{rank}.pt')
+    return 0
+
+
+def _procs_gloo_paths():
+    """Phase 11's paths on a mesh of PAR_J shards over the gloo processes,
+    this process's on cuda:0: banded (setup, cold, 3-step rollout, K2
+    counted), bigqp (setup, cold) and dp_mp_solve on (2, 2), dp across the
+    processes, at phase 11's sizes and settings."""
+    from osqp_tpu_torch import parallel as par
+    from osqp_tpu_torch.ops import dia_matvec as dm
+
+    dev = 'cuda:0'
+    n = SPARSE_N
+    P, q, A, l, u = banded_qp(n, seed=0)
+    kw = dict(eps_abs=EPS, eps_rel=EPS, cg_max_iter=PAR_CG_CAP)
+    mesh = par.make_mesh((PAR_J,), ('mp',), device=dev, group='world')
+    bd, setup_s = _timed(lambda: par.banded_qp_setup(P, q, A, l, u, PAR_J, device=dev))
+    dm.launches = 0
+    cold, cold_s = _timed(lambda: par.banded_qp_solve(mesh, bd, **kw))
+    q_seq = np.stack([q * 1.01 ** k for k in range(1, SPARSE_WARM + 1)])
+    Dinv, Einv = bd.Dinv.reshape(-1)[:n], bd.Einv.reshape(-1)[:n]
+    roll, roll_s = _timed(lambda: par.banded_mpc_rollout(
+        mesh, bd, q_seq, x0=cold.x * Dinv, z0=cold.z, y0=cold.y * bd.c * Einv, **kw))
+    out = dict(banded=dict(
+        setup_s=setup_s, cold=_solve_row(cold, cold_s), rollout_s=roll_s,
+        rollout_status=roll.status.tolist(), rollout_iters=roll.iters.tolist(),
+        rollout_cg_steps=list(roll.cg_iters), rollout_host_syncs=list(roll.host_syncs),
+        k2_launches=dm.launches, x=[cold.x.cpu(), *roll.x.cpu()],
+        y=[cold.y.cpu(), *roll.y.cpu()]))
+    del bd, cold, roll
+    gd, setup_s = _timed(lambda: par.big_qp_setup(P, q, A, l, u, PAR_J, device=dev))
+    big, big_s = _timed(lambda: par.big_qp_solve(mesh, gd, **kw))
+    out['bigqp'] = dict(setup_s=setup_s, cold=_solve_row(big, big_s), x=big.x.cpu(),
+                        y=big.y.cpu())
+    del gd, big
+    torch.cuda.empty_cache()
+    B, nb, m = DPMP
+    batch = build_vmap_problems(B, nb, m, seed=0)
+    dmesh = par.make_mesh((2, 2), ('dp', 'mp'), device=dev, group='world')
+    res, wall = _timed(lambda: par.dp_mp_solve(dmesh, *batch, eps_abs=EPS, eps_rel=EPS))
+    out['dp_mp'] = dict(_dpmp_fields(res), wall_s=wall, host_syncs=res.host_syncs)
+    return out
+
+
+def _procs_nccl_path():
+    """The banded family at n = PROCS_NCCL_N on two shards a process, each
+    process's on its card (LOCAL_RANK's): a cold solve, K2 counted."""
+    from osqp_tpu_torch import parallel as par
+    from osqp_tpu_torch.ops import dia_matvec as dm
+
+    shards = 2 * par.process_count()
+    P, q, A, l, u = banded_qp(PROCS_NCCL_N, seed=0)
+    mesh = par.make_mesh((shards,), ('mp',), group='world')
+    data = par.banded_qp_setup(P, q, A, l, u, shards)
+    dm.launches = 0
+    res, wall = _timed(lambda: par.banded_qp_solve(mesh, data, eps_abs=EPS, eps_rel=EPS,
+                                                   cg_max_iter=PAR_CG_CAP))
+    return dict(banded=dict(_solve_row(res, wall), k2_launches=dm.launches,
+                            device=str(mesh.device_list[0]), x=res.x.cpu()))
+
+
+def run_children(cmd, world, logdir, wall_s, label, env=None):
+    """Run ``cmd --rank r`` for every rank r < ``world`` on this host, each
+    child's output in ``logdir/rank<r>.log``, and wait for all: a child
+    that fails, or the wall limit passing, kills every child still running
+    and raises with the end of each log."""
+    logs = [Path(logdir) / f'rank{r}.log' for r in range(world)]
+    env = dict(os.environ, **(env or {}))
+
+    def tails():
+        return ''.join(f'\n--- {log.name} ---\n{log.read_text()[-4000:]}' for log in logs
+                       if log.exists())
+
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r], 'w') as log:
+                procs.append(subprocess.Popen([*cmd, '--rank', str(r)], stdout=log,
+                                              stderr=subprocess.STDOUT, env=env))
+        deadline = time.monotonic() + wall_s
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                raise RuntimeError(f'{label}: worker {bad[0]} exited with {codes[bad[0]]}'
+                                   + tails())
+            if all(c == 0 for c in codes):
+                return
+            if time.monotonic() > deadline:
+                raise TimeoutError(f'{label}: workers still running after {wall_s} s' + tails())
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def launch_mesh_workers(backend, world, workdir):
+    """``world`` children running ``mesh_worker`` over a FileStore in
+    ``workdir``; returns each rank's results."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    for f in workdir.iterdir():
+        f.unlink()
+    cmd = [sys.executable, str(Path(__file__).resolve()), '--mesh-worker', backend,
+           '--world', str(world), '--init', f'file://{workdir / "store"}', '--out', str(workdir)]
+    run_children(cmd, world, workdir, PROCS_WALL_S, f'{backend} mesh')
+    return [torch.load(workdir / f'rank{r}.pt', weights_only=True) for r in range(world)]
+
+
+def _counts(row):
+    return {k: row[k] for k in ('status', 'iters', 'rho_updates', 'cg_steps', 'cg_cap_hits',
+                                'host_syncs')}
+
+
+def _per_step(row):
+    """Wall, CG steps, host syncs and wall per CG step of one solve."""
+    return dict(wall_s=row['wall_s'], cg_steps=row['cg_steps'], host_syncs=row['host_syncs'],
+                wall_ms_per_cg_step=1e3 * row['wall_s'] / max(row['cg_steps'], 1))
+
+
+def _bits_equal(got, want):
+    return all(g.dtype == w.dtype and g.shape == w.shape and torch.equal(
+        g.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8))
+        for g, w in zip(got, want)) and len(got) == len(want)
+
+
+def procs_phase(card_line, ref):
+    """Phase 11b.  Returns K2's launches in each process of each group."""
+    from osqp_tpu_torch import parallel as par
+
+    t_phase = time.perf_counter()
+    work = ROOT / 'build' / 'mesh_procs'
+    n = SPARSE_N
+    P, q, A, l, u = banded_qp(n, seed=0)
+    q_seq = [q * 1.01 ** k for k in range(1, SPARSE_WARM + 1)]
+    transport = ('gloo: both processes on cuda:0, the bytes of every exchange through pinned '
+                 'host memory (not NCCL)')
+    gloo = launch_mesh_workers('gloo', PROCS_GLOO, work / 'gloo')
+    rows = []
+    for rank, out in enumerate(gloo):
+        if out['world'] != PROCS_GLOO:
+            raise AssertionError(f'gloo rank {rank}: a world of {out["world"]}')
+        b, want = out['banded'], ref['banded']
+        statuses = [b['cold']['status'], *b['rollout_status']]
+        if any(st != 1 for st in statuses):
+            raise AssertionError(f'gloo rank {rank}: banded statuses {statuses}')
+        if b['k2_launches'] <= 0:
+            raise AssertionError(f'gloo rank {rank}: the banded path never launched K2')
+        same = (_counts(b['cold']) == _counts(want['cold'])
+                and (b['rollout_iters'], b['rollout_cg_steps'], b['rollout_host_syncs'])
+                == (want['rollout_iters'], want['rollout_cg_steps'], want['rollout_host_syncs']))
+        if not same or not _bits_equal(b['x'] + b['y'], want['x'] + want['y']):
+            raise AssertionError(f'gloo rank {rank}: banded differs from phase 11: counts '
+                                 f'{_counts(b["cold"])} vs {_counts(want["cold"])}, rollout '
+                                 f'{b["rollout_cg_steps"]} vs {want["rollout_cg_steps"]}')
+        ratios = [sparse_residual_check(P, A, l, u, qk, x.numpy(), y.numpy(), EPS)
+                  for qk, x, y in zip([q, *q_seq], b['x'], b['y'])] if rank == 0 else None
+        g, gw = out['bigqp'], ref['bigqp']
+        if _counts(g['cold']) != _counts(gw['cold']) or g['cold']['status'] != 1:
+            raise AssertionError(f'gloo rank {rank}: bigqp counts {_counts(g["cold"])} vs '
+                                 f'{_counts(gw["cold"])}')
+        big_bits = _bits_equal([g['x'], g['y']], [gw['x'], gw['y']])
+        big_dx = float((g['x'] - gw['x']).abs().max())
+        if gw['deterministic'] and not big_bits:
+            raise AssertionError(f'gloo rank {rank}: bigqp x differs by {big_dx} where two '
+                                 'one-process runs are bit-identical')
+        if not big_dx <= 1e-12 * float(gw['x'].abs().max()):
+            raise AssertionError(f'gloo rank {rank}: bigqp x differs by {big_dx}')
+        d, dw = out['dp_mp'], ref['dp_mp']
+        if not (d['status'] == 1).all():
+            raise AssertionError(f'gloo rank {rank}: dp_mp: {int((d["status"] != 1).sum())} '
+                                 'instances not solved')
+        keys = ('x', 'y', 'status', 'iters', 'rho_updates')
+        if d['host_syncs'] != dw['host_syncs'] or not _bits_equal([d[k] for k in keys],
+                                                                 [dw[k] for k in keys]):
+            raise AssertionError(f'gloo rank {rank}: dp_mp differs from phase 11')
+        rows.append(dict(
+            rank=rank, k2_launches=b['k2_launches'],
+            banded=dict(setup_s=b['setup_s'], cold=_per_step(b['cold']),
+                        rollout_s=b['rollout_s'], rollout_cg_steps=b['rollout_cg_steps'],
+                        rollout_ms_per_cg_step=1e3 * b['rollout_s'] / sum(b['rollout_cg_steps']),
+                        counts_and_bits_equal_phase_11=True, residual_over_bound=ratios),
+            bigqp=dict(setup_s=g['setup_s'], cold=_per_step(g['cold']),
+                       rule='bits' if gw['deterministic'] else '1e-12 of ||x||, counts equal',
+                       bit_identical=big_bits, x_diff=big_dx),
+            dp_mp=dict(wall_s=d['wall_s'], solves_per_s=DPMP[0] / d['wall_s'],
+                       host_syncs=d['host_syncs'], equal_phase_11_bits=True)))
+    wb, wg = ref['banded'], ref['bigqp']
+    line = dict(
+        card=card_line, transport=transport, processes=PROCS_GLOO, shards=PAR_J, n=n,
+        dtype='float64', eps=EPS, per_process=rows,
+        phase_11_one_process=dict(
+            banded=dict(cold=_per_step(wb['cold']), rollout_s=wb['rollout_s'],
+                        rollout_cg_steps=wb['rollout_cg_steps'],
+                        rollout_ms_per_cg_step=1e3 * wb['rollout_s'] / sum(
+                            wb['rollout_cg_steps'])),
+            bigqp=dict(cold=_per_step(wg['cold']), two_runs_bit_identical=wg['deterministic']),
+            dp_mp=dict(wall_s=ref['dp_mp']['wall_s'],
+                       solves_per_s=DPMP[0] / ref['dp_mp']['wall_s'],
+                       host_syncs=ref['dp_mp']['host_syncs'])))
+    print(f'mesh over processes ({transport}):', json.dumps(line), flush=True)
+
+    # NCCL: one process a card, two shards each, against the one-process mesh
+    world = torch.cuda.device_count()
+    nccl = launch_mesh_workers('nccl', world, work / 'nccl')
+    Pn, qn, An, ln, un = banded_qp(PROCS_NCCL_N, seed=0)
+    mesh = par.make_mesh((2 * world,), ('mp',))
+    want, wall = _timed(lambda: par.banded_qp_solve(
+        mesh, par.banded_qp_setup(Pn, qn, An, ln, un, 2 * world), eps_abs=EPS, eps_rel=EPS,
+        cg_max_iter=PAR_CG_CAP))
+    want_row = _solve_row(want, wall)
+    nrows = []
+    for rank, out in enumerate(nccl):
+        b = out['banded']
+        if out['world'] != world or _counts(b) != _counts(want_row) or b['k2_launches'] <= 0:
+            raise AssertionError(f'nccl rank {rank} (world {out["world"]}): counts '
+                                 f'{_counts(b)} vs {_counts(want_row)}, K2 {b["k2_launches"]}')
+        nrows.append(dict(rank=rank, device=b['device'], k2_launches=b['k2_launches'],
+                          cold=_per_step(b), x_bit_identical=_bits_equal([b['x']],
+                                                                          [want.x.cpu()])))
+    print('mesh over processes (NCCL, one process a card):', json.dumps(dict(
+        card=card_line, world_size=world, shards=2 * world, n=PROCS_NCCL_N, dtype='float64',
+        eps=EPS, counts=_counts(want_row), per_process=nrows,
+        one_process=_per_step(want_row))), flush=True)
+    print(f'mesh over processes phase: {time.perf_counter() - t_phase:.1f} s', flush=True)
+    return dict(gloo=[r['k2_launches'] for r in rows], nccl=[r['k2_launches'] for r in nrows])
+
 
 # ---------------------------------------------------------------------------
 # Phase 12: the 'ldl' algebra (K5, K6)
@@ -3176,6 +3476,12 @@ def main():
     ap = argparse.ArgumentParser(description='Run the port on one NVIDIA GPU and check it.')
     ap.add_argument('--k1', action='store_true',
                     help='build K1 and run only its phase (3), then stop without a result line')
+    ap.add_argument('--mesh-worker', choices=('gloo', 'nccl'),
+                    help="run as one process of phase 11b's mesh (started by this script)")
+    ap.add_argument('--rank', type=int)
+    ap.add_argument('--world', type=int)
+    ap.add_argument('--init')
+    ap.add_argument('--out')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device (torch.cuda.is_available() is False)', file=sys.stderr)
@@ -3184,6 +3490,8 @@ def main():
         print(f'chip_smoke: osqp_tpu_torch not found beside {__file__}', file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.mesh_worker:
+        return mesh_worker(args.mesh_worker, args.rank, args.world, args.init, args.out)
     from osqp_tpu_torch.ops import _build
     from osqp_tpu_torch.ops import dia_matvec as dm
     from osqp_tpu_torch.ops import shared_epoch as se
@@ -3339,8 +3647,14 @@ def main():
 
     # 11. the multi-device package: banded (K2 on every shard's halo
     # window), bigqp and dp_mp on shards of the card(s)
-    _, halo_rows, banded_launches = parallel_phase(kind)
+    _, halo_rows, banded_launches, par_ref = parallel_phase(kind)
     mark('phase 11 (multi-device)')
+
+    # 11b. the same paths on a mesh over processes: gloo processes sharing
+    # the card, then NCCL with one process a card
+    procs_launches = procs_phase(card_line, par_ref)
+    del par_ref
+    mark('phase 11b (mesh over processes)')
 
     # 12. the 'ldl' algebra: K5 and K6 against their plain versions and
     # timed, its main path (the Portfolio at 10,000 x 100), card against CPU
@@ -3379,6 +3693,7 @@ def main():
         shape=f"{dia_head['case']} D={dia_head['D']} m={dia_head['m_out']} {dia_head['dtype']}",
         portfolio_launches=fam['portfolio']['launches']['dia_matvec'],
         export_launches=export_launches['dia_matvec'], banded_launches=banded_launches,
+        banded_process_launches=procs_launches,
         banded_window_ms={f"{r['case'].split()[0]} {r['dtype']}": r['ms'] for r in halo_rows},
         banded_window_cold_l2_ms={f"{r['case'].split()[0]} {r['dtype']}": r['cold_l2_ms']
                                   for r in halo_rows},

@@ -10,11 +10,14 @@ operator.  The two copies differ only in where a vector lives and in how its
 products and reductions cross the mesh; here that difference is an
 ``Operators`` tuple and the loop is written once.
 
-Every value is a ``mesh.Parts`` (one tensor per shard).  The JAX package's
-``while_loop`` and ``cond`` become host control: the host reads the CG test
-once a CG step and the check's outcome (with the adaptive-rho trigger) once
-a check, each time one replicated value from the first shard, whatever the
-number of shards.  Each read is one counted host sync.
+Every value is a ``mesh.Parts`` (one tensor per shard of this process).
+The JAX package's ``while_loop`` and ``cond`` become host control: the host
+reads the CG test once a CG step and the check's outcome (with the
+adaptive-rho trigger) once a check, each time one replicated value from
+this process's first shard, whatever the number of shards.  Each read is
+one counted host sync.  On a mesh over processes every process reads its
+own replica; the mesh keeps replicas bit-identical, so every process takes
+the same branches and counts the same syncs and CG steps.
 """
 
 from __future__ import annotations
@@ -91,7 +94,7 @@ class Operators(NamedTuple):
     Amv: Callable      # x -> y
     Atmv: Callable     # y -> x
     gram: Callable     # rho (y) -> diag(A' rho A) (x)
-    dot_x: Callable    # (x, x) -> replicated 0-d
+    dots: Callable     # (x, x) pairs -> a replicated 0-d each, in one reduction
     max_x: Callable    # x -> replicated inf-norm
     max_y: Callable    # y -> replicated inf-norm
     sum_y: Callable    # y -> replicated sum
@@ -167,7 +170,7 @@ def make_run(mesh, ops: Operators, prob: Problem, *, n, dtype, data_sigma, rho0,
     one = f(1)
 
     Pmv, Amv, Atmv = ops.Pmv, ops.Amv, ops.Atmv
-    dot, max_x, max_y = ops.dot_x, ops.max_x, ops.max_y
+    max_x, max_y = ops.max_x, ops.max_y
     p = prob
     l_loc, u_loc, types = p.l, p.u, p.types
     cinv, c = p.cinv, p.c
@@ -177,6 +180,9 @@ def make_run(mesh, ops: Operators, prob: Problem, *, n, dtype, data_sigma, rho0,
 
     def maximum(a, b):
         return each(torch.maximum, a, b)
+
+    def dot(a, b):
+        return ops.dots((a, b))[0]
 
     def Mmv(v, rho, shift):
         return Pmv(v) + shift * v + Atmv(rho * Amv(v))
@@ -199,10 +205,11 @@ def make_run(mesh, ops: Operators, prob: Problem, *, n, dtype, data_sigma, rho0,
         r = rhs - Mmv(xk, rho, shift)
         zv = dinv * r
         pv = zv
-        rz = dot(r, zv)
+        # r'r (the stop test's) and r'z of the new residual in one reduction
+        rr, rz = ops.dots((r, r), (r, zv))
         k = 0
         while k < cg_cap:
-            if not read(each(torch.sqrt, dot(r, r)) > tol)[0]:
+            if not read(each(torch.sqrt, rr) > tol)[0]:
                 break
             Mp = Mmv(pv, rho, shift)
             denom = dot(pv, Mp)
@@ -210,7 +217,7 @@ def make_run(mesh, ops: Operators, prob: Problem, *, n, dtype, data_sigma, rho0,
             xk = xk + a * pv
             r = r - a * Mp
             zv = dinv * r
-            rzn = dot(r, zv)
+            rr, rzn = ops.dots((r, r), (r, zv))
             beta = rzn / where(rz != 0, rz, 1.0)
             pv = zv + beta * pv
             rz = rzn

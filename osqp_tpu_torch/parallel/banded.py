@@ -4,9 +4,9 @@ Counterpart of ``osqp_tpu/parallel/banded.py``.  Everything is split into
 contiguous row blocks of L rows, x included; each shard keeps its block's
 DIA bands and, for every product, receives only W-wide halos from its two
 neighbours (``Mesh.halo_window``), W being the bandwidth.  Communication per
-CG step is O(W) per shard (three halo exchanges and two scalar ``psum``s)
-instead of ``bigqp``'s O(n); the math is the same vector-rho ADMM (the loop
-in ``_admm``).
+CG step is O(W) per shard (two halo exchanges, P v and A v sharing one, and
+two ``psum``s of one or two scalars) instead of ``bigqp``'s O(n); the math is
+the same vector-rho ADMM (the loop in ``_admm``).
 
 m != n is handled by padding both to J*L: extra rows are loose (rho =
 RHO_MIN, bounds +-INFTY) and extra variables are free with unit curvature
@@ -178,20 +178,36 @@ def _banded_ops(mesh, data: BandedQPData, axis):
     off_p, off_a, off_at = (shifted(o) for o in (data.offsets_p, data.offsets_a,
                                                  data.offsets_at))
 
+    last = [None, None]  # the last vector exchanged and its windows
+
     def dia_mv(bands, offsets, v):
-        """Local rows of (global DIA) @ (sharded v): one halo exchange, then
-        K2 on the (L + 2W,) window."""
-        return each(dia_matvec, bands, offsets, mesh.halo_window(v, W, axis))
+        """Local rows of (global DIA) @ (sharded v): one halo exchange (kept
+        for the next product of the same v: P v and A v share it), then K2
+        on the (L + 2W,) window."""
+        if last[0] is not v:
+            last[:] = v, mesh.halo_window(v, W, axis)
+        return each(dia_matvec, bands, offsets, last[1])
 
     def vmax(v):
         return mesh.pmax(v.map(_inf_norm), axis)
+
+    def dots(*pairs):
+        """The dot products of ``pairs``, each summed over the shards in
+        shard order, in one psum."""
+        if len(pairs) == 1:
+            return [mesh.psum(each(torch.dot, *pairs[0]), axis)]
+        flat = [t for pair in pairs for t in pair]
+        local = each(lambda *v: torch.stack([torch.dot(a, b) for a, b in zip(v[::2], v[1::2])]),
+                     *flat)
+        s = mesh.psum(local, axis)
+        return [s.map(lambda t, k=k: t[k]) for k in range(len(pairs))]
 
     return _admm.Operators(
         Pmv=lambda v: dia_mv(p_b, off_p, v),
         Amv=lambda v: dia_mv(a_b, off_a, v),
         Atmv=lambda w: dia_mv(at_b, off_at, w),
         gram=lambda rho: dia_mv(a2t_b, off_at, rho),
-        dot_x=lambda a, b: mesh.psum(each(torch.dot, a, b), axis),
+        dots=dots,
         max_x=vmax, max_y=vmax,
         sum_y=lambda v: mesh.psum(v.map(torch.sum), axis))
 

@@ -174,14 +174,14 @@ def _csr(data, idx, shape, device):
 
 
 def _local_blocks(mesh, data: BigQPData, axis):
-    """Each shard's P and A row blocks as CooMatrix operators on its
-    device, built once per mesh and data matrices."""
+    """The P and A row blocks of this process's shards as CooMatrix
+    operators on their devices, built once per mesh and data matrices."""
     mesh.check(data.pdata)
     n, n_loc, m_loc = data.n, data.n_loc, data.m_loc
 
     def build():
         P_loc, A_loc = [], []
-        for j, d in enumerate(mesh.device_list):
+        for j, d in zip(mesh.local, mesh.device_list):
             j_ax = mesh.coords(j)[axis]
             pd, pi = data.pdata[j_ax].to(d), data.pidx[j_ax].to(d)
             ad, ai = data.adata[j_ax].to(d), data.aidx[j_ax].to(d)
@@ -209,7 +209,7 @@ def _bigqp_ops(mesh, data, axis):
         Amv=lambda v: A_loc @ v,
         Atmv=lambda w: mesh.psum(At_loc @ w, axis),
         gram=lambda rho: mesh.psum(each(lambda a, r: a.gram_diag(r), A_loc, rho), axis),
-        dot_x=lambda a, b: each(torch.dot, a, b),
+        dots=lambda *pairs: [each(torch.dot, a, b) for a, b in pairs],
         max_x=lambda v: v.map(_inf_norm),
         max_y=pmax_inf,
         sum_y=lambda v: mesh.psum(v.map(torch.sum), axis))

@@ -25,7 +25,10 @@ instance whose predicate was false (a finished instance is frozen), and a
 batched ``cond`` computes both branches and selects.  All live instances
 share one iteration count, so the loop is a host loop over epochs that reads
 one value per epoch (are any instances still running, over every dp block)
-in one host sync.
+in one host sync.  On a mesh over processes the dp blocks of the other
+processes join that flag by one all-reduce of one flag, inside the same
+sync; every process passes the whole batch and keeps its own blocks, and
+the result is the whole batch on every process.
 """
 
 from __future__ import annotations
@@ -502,7 +505,8 @@ def _row_consensus_solve(mesh, P_mat, q, A_loc, l_loc, u_loc, x0, y0, stg: Shard
     epoch_len = ct if ct > 0 else max_iter
     interval = stg.adaptive_rho_interval
     epochs_per_adapt = max((interval + epoch_len - 1) // max(epoch_len, 1), 1)
-    dp_first = [g[0] for g in mesh.groups(axis)]  # one shard of each dp block
+    # one shard of each dp block this process holds
+    dp_first = mesh.representatives(axis)
     syncs = 0
 
     def run_check(s, approximate=False):
@@ -527,10 +531,8 @@ def _row_consensus_solve(mesh, P_mat, q, A_loc, l_loc, u_loc, x0, y0, stg: Shard
             new = _adapt_rho_sh(cx, stg, new)
         st = new.select(live, st)
         live = (st.it < max_iter) & (st.status == _UNSOLVED)
-        d0 = mesh.device_list[0]
-        flag = torch.stack([live[i].any().to(d0) for i in dp_first]).any()
         syncs += 1
-        running = bool(flag.cpu())
+        running = mesh.any([live[i].any() for i in dp_first])
 
     # post-loop (ref _osqp.py:1248-1275): exact re-check, then 10x
     # approximate, else MAX_ITER_REACHED, for the unsolved at max_iter
@@ -588,7 +590,8 @@ def dp_mp_solve(mesh, P_mat, q, A, l, u, *,
     ``check_termination``.  ``x0 (B, n)`` / ``y0 (B, m)`` warm-start in
     unscaled problem space.  The working dtype is P's (float32 or float64;
     float64 otherwise).  Returns a ``ShardedResult`` with batch-leading
-    global tensors on the mesh's first device."""
+    global tensors on the mesh's first device (on a mesh over processes:
+    on every process, each passing the whole batch)."""
     if check_every is not None:
         check_termination = check_every
     dtype = _working_dtype(P_mat)
@@ -620,6 +623,7 @@ def dp_mp_solve(mesh, P_mat, q, A, l, u, *,
         polish_refine_iter=int(polish_refine_iter))
 
     def put(v, spec):
+        """This process's blocks of the global ``v``."""
         if isinstance(v, torch.Tensor):
             mesh.check(v)
             v = v.to(mesh.device_list[0], dtype)
@@ -657,25 +661,29 @@ def dp_mp_solve(mesh, P_mat, q, A, l, u, *,
 class BatchSharding:
     """Splits a batch tensor over the shards along the dp axis (its leading
     dimension; replicated over any other axis) and joins the per-shard
-    results back: the port's ``NamedSharding(mesh, P(dp, None, ...))``."""
+    results back: the port's ``NamedSharding(mesh, P(dp, None, ...))``.  On
+    a mesh over processes each process splits the global batch into its own
+    shards' blocks and the join gathers every process's."""
 
     def __init__(self, mesh, dp_axis, ndim):
         self.mesh = mesh
         self.spec = (dp_axis,) + (None,) * (ndim - 1)
 
     def split(self, t) -> Parts:
-        """One block of rows per shard, each on its shard's device."""
+        """One block of rows per shard of this process, each on its
+        shard's device."""
         return self.mesh.split(t, self.spec)
 
     def join(self, parts) -> torch.Tensor:
-        """The blocks concatenated in shard order on the first device."""
+        """The blocks of every shard concatenated in shard order on this
+        process's first device."""
         return self.mesh.join(Parts(parts), self.spec)
 
 
 def make_batch_shardings(mesh, dp_axis='dp'):
     """Batch shardings for dp-sharding the batched solver
     (``osqp_tpu_torch.batch.batch_qp_solve``) over a mesh: the batch axis
-    split, all else follows.  Solve each shard's block (a call a shard) and
-    join the results."""
+    split, all else follows.  Solve each shard's block (a call a shard of
+    this process) and join the results."""
     return {'mat': BatchSharding(mesh, dp_axis, 3), 'vec': BatchSharding(mesh, dp_axis, 2),
             'scalar': BatchSharding(mesh, dp_axis, 1)}
