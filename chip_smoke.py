@@ -3238,14 +3238,17 @@ def ldl_timing(card, label, K_triu, plain=True):
     plain versions run, K5 and K6 are held to them with ``ldl_check``'s
     limits: L within 1e-10 of each column's max-norm, D within 1e-10
     relative, n_positive equal, the solve within 1e-12 of ||b||_inf."""
+    from osqp_tpu_torch import tracing
     from osqp_tpu_torch.ops import ldl as tldl
 
     peak_f64, peak_bytes = peaks(card)[1], peaks(card)[2]
     t0 = time.perf_counter()
     launches = tldl.factor_launches
+    sym_ns = tracing.ldl_symbolic_ns
     fac = tldl.LDLFactor(K_triu, device=DEV)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    symbolic_s = (tracing.ldl_symbolic_ns - sym_ns) / 1e9
     launches = tldl.factor_launches - launches
     b = torch.as_tensor(np.random.default_rng(1).standard_normal(fac.n), device=DEV)
     k5_ms = cuda_ms(fac.launch_factor, 3)
@@ -3260,7 +3263,7 @@ def ldl_timing(card, label, K_triu, plain=True):
         raise AssertionError(f'K5 {label}: {launches} launches, the symbolic pass states '
                              f'{fac.sym.k5_launches}')
     row = dict(case=label, **_ldl_stats(fac), setup_and_first_factor_s=first_s,
-               symbolic_s=fac.symbolic_s, k5_launches=launches, k5_ms=k5_ms,
+               symbolic_s=symbolic_s, k5_launches=launches, k5_ms=k5_ms,
                k5_busy_ms=k5_busy_ms, k5_bound_ms=bounds['k5'][0], k5_bound_by=bounds['k5'][1],
                k6_launches_per_solve=1, k6_ms=k6_ms, k6_busy_ms=k6_busy_ms,
                k6_bound_ms=bounds['k6'][0], k6_bound_by=bounds['k6'][1],
@@ -3318,17 +3321,22 @@ def ldl_main_path():
     pass states (``Symbolic.k5_launches``), K6 launched.  Then a profile of
     one more warm step (cut to LDL_PROFILE_ITERS iterations), and one solve from zero
     iterates (the adapted rho kept) with polishing=True."""
-    from osqp_tpu_torch import OSQP
+    from osqp_tpu_torch import OSQP, tracing
     from osqp_tpu_torch.ops import ldl as tldl
 
     P, q, A, l, u = portfolio_family(*LDL_MAIN)
     torch.cuda.synchronize()
     tldl.factor_launches = tldl.factor_calls = tldl.solve_launches = 0
     t0 = time.perf_counter()
+    c0 = tracing.counters()
     o = OSQP(device=DEV, algebra='ldl')
     o.setup(P=P, q=q, A=A, l=l, u=u, eps_abs=EPS, eps_rel=EPS, verbose=False)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    # setup's split on the host clock, from the port's spans
+    c1 = tracing.counters()
+    setup_split = {f'{span}_s': (c1[f'{span}_ns'] - c0[f'{span}_ns']) / 1e9
+                   for span in ('setup_scale', 'ldl_symbolic', 'ldl_factor', 'kernel_load')}
     k5, k6 = [tldl.factor_calls], [tldl.solve_launches]
     qs, results, times = [], [], []
     for k in range(FAMILY_WARM + 1):
@@ -3360,7 +3368,7 @@ def ldl_main_path():
     summary = dict(
         n=P.shape[0], m=A.shape[0], nnz_A=int(A.nnz), **_ldl_stats(fac),
         formats=[o._solver._sparse_fmt_P, o._solver._sparse_fmt_A],
-        setup_s=setup_s, setup_split=o._solver.setup_split, cold_solve_s=times[0],
+        setup_s=setup_s, setup_split=setup_split, cold_solve_s=times[0],
         warm_solve_s=times[1:], statuses=statuses, admm_iters=[r.info.iter for r in results],
         rho_updates=rho_updates, host_syncs=[r.info.host_syncs for r in results],
         k5_calls=k5_steps, k5_launches=k5_launches, k6_launches=k6_steps,

@@ -37,6 +37,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from . import tracing
 from .constants import (
     CapabilitiesType,
     LinsysSolverType,
@@ -82,6 +83,12 @@ def _invalid():
     return OSQPException(int(SolverError.OSQP_DATA_VALIDATION_ERROR))
 
 
+def _host(t):
+    """``t`` copied to the host as a numpy array: a sync."""
+    with tracing.span('sync', d2h=t.nbytes):
+        return t.cpu().numpy()
+
+
 def _scale_csc(S, rowscale, colscale, mult=1.0):
     """rowscale[i] * S[i, j] * colscale[j] * mult, keeping the exact stored
     pattern (scipy's diags @ S @ diags would prune explicit zeros and change
@@ -123,7 +130,11 @@ class Solver:
         return np_dtype(self._dtype)
 
     def _t(self, a):
-        return torch.as_tensor(np.asarray(a, np.float64), dtype=self._dtype, device=self._device)
+        # the cast on the host, then the copy to the device (a sync: torch
+        # copies pageable memory synchronously)
+        t = torch.as_tensor(np.asarray(a, np.float64), dtype=self._dtype)
+        with tracing.span('sync', h2d=t.nbytes):
+            return t.to(self._device)
 
     def _check_convexity(self):
         """Direct mode: the scaled KKT matrix has valid inertia iff
@@ -195,8 +206,9 @@ class Solver:
         n, m = self.n, self.m
         f = self._f()
         if int(self._stg.scaling) > 0:
-            P_s, A_s, q_s, l_s, u_s, D, E, c = ruiz_scale_scipy(
-                P_full, A, q, l, u, int(self._stg.scaling))
+            with tracing.span('setup.scale'):
+                P_s, A_s, q_s, l_s, u_s, D, E, c = ruiz_scale_scipy(
+                    P_full, A, q, l, u, int(self._stg.scaling))
         else:
             P_s, A_s, q_s, l_s, u_s = P_full, A, q, l, u
             D, E, c = np.ones(n), np.ones(m), 1.0
@@ -231,8 +243,9 @@ class Solver:
             Aj = self._t(A.toarray() if m else np.zeros((m, n)))
             qj, lj, uj = self._t(q), self._t(l), self._t(u)
             if int(self._stg.scaling) > 0:
-                self._data, self._scal = core.ruiz_scale(Pj, qj, Aj, lj, uj,
-                                                         int(self._stg.scaling))
+                with tracing.span('setup.scale'):
+                    self._data, self._scal = core.ruiz_scale(Pj, qj, Aj, lj, uj,
+                                                             int(self._stg.scaling))
             else:
                 self._data = core.QPData(P=Pj, q=qj, A=Aj, l=lj, u=uj)
                 self._scal = core.identity_scaling(n, m, self._dtype, self._device)
@@ -346,8 +359,8 @@ class Solver:
         self._rho = res.rho
         self._factor = res.factor
 
-        x_out = res.x.cpu().numpy().astype(np.float64)
-        y_out = res.y.cpu().numpy().astype(np.float64)
+        x_out = _host(res.x).astype(np.float64)
+        y_out = _host(res.y).astype(np.float64)
         info.iter = int(res.iters)
         info.obj_val = float(res.obj_val)
         info.dual_obj_val = float(res.dual_obj_val)
@@ -383,8 +396,8 @@ class Solver:
                 info.dual_res = float(pol.dua_res)
                 self._iterates = core.Iterates(x=pol.x.to(self._dtype), z=pol.z.to(self._dtype),
                                                y=pol.y.to(self._dtype))
-                x_out = (scal64.D * pol.x).cpu().numpy()
-                y_out = (scal64.cinv * (scal64.E * pol.y)).cpu().numpy()
+                x_out = _host(scal64.D * pol.x)
+                y_out = _host(scal64.cinv * (scal64.E * pol.y))
             elif pol.x is None:
                 info.status_polish = -1  # the reduced KKT matrix had a zero pivot
             else:
@@ -411,8 +424,8 @@ class Solver:
         sol = self._solution
         sol.x = x_out
         sol.y = y_out
-        sol.prim_inf_cert = res.prim_inf_cert.cpu().numpy().astype(np.float64)
-        sol.dual_inf_cert = res.dual_inf_cert.cpu().numpy().astype(np.float64)
+        sol.prim_inf_cert = _host(res.prim_inf_cert).astype(np.float64)
+        sol.dual_inf_cert = _host(res.dual_inf_cert).astype(np.float64)
         sol.linesearch = linesearch
         return sol, info
 
@@ -471,7 +484,8 @@ class Solver:
             # re-type the constraints; refactor only on a type change
             # (ref _osqp.py:526-562)
             new_types = core.constraint_types(self._data.l, self._data.u)
-            changed = bool(torch.any(new_types != self._rho.constr_type))
+            with tracing.span('sync', d2h=1):
+                changed = bool(torch.any(new_types != self._rho.constr_type))
             rho = core.clip_rho(self._stg.rho, self._dtype)
             vec = core.rho_vec_from_types(new_types, rho, bool(self._stg.rho_is_vec), self._dtype)
             self._rho = core.RhoState(rho=rho, rho_vec=vec,

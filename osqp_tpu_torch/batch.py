@@ -19,6 +19,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from . import tracing
 from .batch_shared import settings_scale_q, shared_setup, shared_solve
 from .constants import LinsysSolverType, status_string
 from .device import resolve_device
@@ -128,7 +129,8 @@ mpc_rollout_donated = mpc_rollout
 
 
 def _host(t):
-    return t.cpu().numpy()
+    with tracing.span('sync', d2h=t.nbytes):
+        return t.cpu().numpy()
 
 
 class BatchedOSQP:
@@ -192,6 +194,7 @@ class BatchedOSQP:
     def _indirect(self):
         return self._stg.linsys_solver == int(LinsysSolverType.OSQP_INDIRECT_SOLVER)
 
+    @tracing.traced('setup')
     def setup(self, P, q, A, l, u, **settings):
         t0 = time.perf_counter()
         solver_type = settings.pop('solver_type', 'direct')
@@ -324,10 +327,15 @@ class BatchedOSQP:
         self._sh_Y = self._zeros(self.m)
 
     def _tensor(self, v):
-        return torch.tensor(np.asarray(v), dtype=self._dtype, device=self._device)
+        # the cast on the host, then the copy to the device (a sync: torch
+        # copies pageable memory synchronously)
+        t = torch.tensor(np.asarray(v), dtype=self._dtype)
+        with tracing.span('sync', h2d=t.nbytes):
+            return t.to(self._device)
 
     # -- both engines ------------------------------------------------------
 
+    @tracing.traced('update')
     def update(self, q=None, l=None, u=None):
         """Stage batched vector updates; applied at the next solve."""
         for name, v in (('q', q), ('l', l), ('u', u)):
@@ -360,6 +368,7 @@ class BatchedOSQP:
                              * (scal.Einv * self._tensor(np.asarray(y, np.float64))))
         self._iterates = it
 
+    @tracing.traced('solve')
     def solve(self):
         t0 = time.perf_counter()
         if self._engine == 'shared':
@@ -404,6 +413,7 @@ class BatchedOSQP:
         if 'u' in self._pending:
             self._sh_U = (scal.E[:, None] * self._pending['u'].T).contiguous()
         self._pending = {}
+        syncs = tracing.thread_syncs()
         out = shared_solve(
             self._sh_P, self._sh_A, self._sh_Q, self._sh_L, self._sh_U,
             scal, stg, self._sh_rho, self._sh_Minv, self._sh_M,
@@ -413,6 +423,7 @@ class BatchedOSQP:
         self._sh_rho = out['rho']
         self._sh_rho_vec = out['rho_vec']
         self._sh_Minv, self._sh_M = out['Minv'], out['M']
+        host_syncs = tracing.thread_syncs() - syncs
 
         status_vals = _host(out['status'])
         solve_time = time.perf_counter() - t0
@@ -427,6 +438,7 @@ class BatchedOSQP:
             dual_res=_host(out['dua_res']),
             rho_estimate=float(out['rho']),
             rho_updates=int(out['rho_updates']),
+            host_syncs=host_syncs,
             solve_time=solve_time,
             setup_time=self.setup_time,
             run_time=self.setup_time + solve_time,

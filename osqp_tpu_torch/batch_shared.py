@@ -27,6 +27,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from . import tracing
 from .constants import RHO_MAX, RHO_MIN, SolverStatus
 from .device import resolve_device
 from .ops.shared_epoch import affine_iterations, epoch_scalars, iter_halves, shared_epoch
@@ -352,7 +353,8 @@ def shared_solve(P, A, Q, L_b, U_b, scal: Scaling, settings: CoreSettings,
             adapt = (settings.adaptive_rho and settings.adaptive_rho_interval > 0
                      and epoch_idx % epochs_per_adapt == 0)
             if not adapt:
-                st.n_unsolved = int(n_uns)  # the epoch's one host sync
+                with tracing.span('sync', d2h=8):
+                    st.n_unsolved = int(n_uns)  # the epoch's one host sync
                 continue
             # masked median of the estimates over still-active real columns
             X, Z, Y = st.S[:n, :B_real], st.S[n:n + m, :B_real], st.S[n + m:, :B_real]
@@ -366,7 +368,8 @@ def shared_solve(P, A, Q, L_b, U_b, scal: Scaling, settings: CoreSettings,
             med_hi = vals[torch.clamp(cnt // 2, max=vals.shape[0] - 1)]
             med = 0.5 * (med_lo + med_hi)
             # the epoch's one host sync: both counts and the median together
-            n_uns, cnt, med = torch.stack([n_uns.to(dtype), cnt.to(dtype), med]).tolist()
+            with tracing.span('sync', d2h=3 * Q.element_size()):
+                n_uns, cnt, med = torch.stack([n_uns.to(dtype), cnt.to(dtype), med]).tolist()
             st.n_unsolved = int(n_uns)
             if st.n_unsolved == 0:
                 continue
@@ -374,10 +377,12 @@ def shared_solve(P, A, Q, L_b, U_b, scal: Scaling, settings: CoreSettings,
             tolr = settings.adaptive_rho_tolerance
             if not (rho_new > tolr * st.rho or rho_new < st.rho / tolr):
                 continue
-            vec = core.rho_vec_from_types(types0, rho_new, settings.rho_is_vec, dtype)
-            fac = core.factorize(P, A, sigma, vec, 'inv')
-            rinv = torch.where(vec > 0, 1.0 / vec, 0.0)
-            F_new, c0_new = _build_affine(A, At, fac.Minv, fac.L, vec, rinv, sigma, alpha, Qc)
+            with tracing.span('rho.update'):
+                vec = core.rho_vec_from_types(types0, rho_new, settings.rho_is_vec, dtype)
+                fac = core.factorize(P, A, sigma, vec, 'inv')
+                rinv = torch.where(vec > 0, 1.0 / vec, 0.0)
+                F_new, c0_new = _build_affine(A, At, fac.Minv, fac.L, vec, rinv, sigma, alpha,
+                                              Qc)
             st = replace(
                 st, rho=np.clip(rho_new, f(1e-6), f(1e6)), rho_vec=vec, rho_inv=rinv,
                 Minv=fac.Minv, M=fac.L, F=F_new, c0=c0_new,
@@ -385,68 +390,75 @@ def shared_solve(P, A, Q, L_b, U_b, scal: Scaling, settings: CoreSettings,
             )
         return st
 
-    # Straggler compaction: once the active tail fits a narrow buffer, gather
-    # it and finish there, so the slowest instance no longer forces
-    # full-batch epochs.  Exact (see ``run``).
-    tail_width = max(128, _round_up(B // 16, 128))
-    if B >= 4 * tail_width and compact != '0':
-        st = run(st, Q, L_b, U_b, B, None, tail_width)
-        # gather the still-active columns; fills duplicate column 0 and are
-        # masked out of the adaptive-rho median through ``valid``
-        idx = torch.nonzero(st.status == _UNSOLVED).flatten()[:tail_width]
-        idx = torch.cat([idx, idx.new_zeros(tail_width - idx.numel())])
-        valid = torch.arange(tail_width, device=dev) < st.n_unsolved
+    with tracing.span('solve.loop'):
+        # Straggler compaction: once the active tail fits a narrow buffer, gather
+        # it and finish there, so the slowest instance no longer forces
+        # full-batch epochs.  Exact (see ``run``).
+        tail_width = max(128, _round_up(B // 16, 128))
+        if B >= 4 * tail_width and compact != '0':
+            st = run(st, Q, L_b, U_b, B, None, tail_width)
+            # gather the still-active columns; fills duplicate column 0 and are
+            # masked out of the adaptive-rho median through ``valid``
+            with tracing.span('sync'):
+                idx = torch.nonzero(st.status == _UNSOLVED).flatten()[:tail_width]
+            idx = torch.cat([idx, idx.new_zeros(tail_width - idx.numel())])
+            valid = torch.arange(tail_width, device=dev) < st.n_unsolved
 
-        def g2(V):
-            return V[:, idx]
+            def g2(V):
+                return V[:, idx]
 
-        stc = replace(
-            st, S=g2(st.S), dX=g2(st.dX), dY=g2(st.dY),
-            fS=g2(st.fS), fdX=g2(st.fdX), fdY=g2(st.fdY), c0=g2(st.c0),
-            status=st.status[idx], iters_done=st.iters_done[idx],
-            pri_res=st.pri_res[idx], dua_res=st.dua_res[idx],
-            obj_val=st.obj_val[idx], dual_obj_val=st.dual_obj_val[idx],
-        )
-        stc = run(stc, g2(Q), g2(L_b), g2(U_b), tail_width, valid, 0)
-        for name in ('S', 'dX', 'dY', 'fS', 'fdX', 'fdY'):
-            getattr(st, name)[:, idx] = getattr(stc, name)
-        for name in ('status', 'iters_done', 'pri_res', 'dua_res', 'obj_val', 'dual_obj_val'):
-            getattr(st, name)[idx] = getattr(stc, name)
-        st = replace(
-            st, it=stc.it, rho=stc.rho, rho_vec=stc.rho_vec, rho_inv=stc.rho_inv,
-            Minv=stc.Minv, M=stc.M, rho_updates=stc.rho_updates,
-            n_unsolved=int((st.status == _UNSOLVED).sum()),
-        )
-    else:
-        st = run(st, Q, L_b, U_b, B, None, 0)
+            stc = replace(
+                st, S=g2(st.S), dX=g2(st.dX), dY=g2(st.dY),
+                fS=g2(st.fS), fdX=g2(st.fdX), fdY=g2(st.fdY), c0=g2(st.c0),
+                status=st.status[idx], iters_done=st.iters_done[idx],
+                pri_res=st.pri_res[idx], dua_res=st.dua_res[idx],
+                obj_val=st.obj_val[idx], dual_obj_val=st.dual_obj_val[idx],
+            )
+            stc = run(stc, g2(Q), g2(L_b), g2(U_b), tail_width, valid, 0)
+            for name in ('S', 'dX', 'dY', 'fS', 'fdX', 'fdY'):
+                getattr(st, name)[:, idx] = getattr(stc, name)
+            for name in ('status', 'iters_done', 'pri_res', 'dua_res', 'obj_val',
+                         'dual_obj_val'):
+                getattr(st, name)[idx] = getattr(stc, name)
+            with tracing.span('sync', d2h=8):
+                n_unsolved = int((st.status == _UNSOLVED).sum())
+            st = replace(
+                st, it=stc.it, rho=stc.rho, rho_vec=stc.rho_vec, rho_inv=stc.rho_inv,
+                Minv=stc.Minv, M=stc.M, rho_updates=stc.rho_updates, n_unsolved=n_unsolved,
+            )
+        else:
+            st = run(st, Q, L_b, U_b, B, None, 0)
 
-    # post-loop max-iter handling: exact check, then approximate
-    if st.n_unsolved:
-        active = st.status == _UNSOLVED
-        status_ex, pri_ex, dua_ex, obj_ex, dobj_ex = check(Q, L_b, U_b, st.S, st.dX, st.dY, False)
-        status_ap, _, _, obj_ap, _ = check(Q, L_b, U_b, st.S, st.dX, st.dY, True)
-        status_fin = torch.where(
-            status_ex != _UNSOLVED, status_ex,
-            torch.where(status_ap != _UNSOLVED, status_ap, _MAX_ITER),
-        ).to(torch.int32)
-        a2 = active[None]
-        st = replace(
-            st,
-            status=torch.where(active, status_fin, st.status),
-            iters_done=torch.where(active, st.it, st.iters_done),
-            pri_res=torch.where(active, pri_ex, st.pri_res),
-            dua_res=torch.where(active, dua_ex, st.dua_res),
-            obj_val=torch.where(active, torch.where(status_ex != _UNSOLVED, obj_ex, obj_ap),
-                                st.obj_val),
-            dual_obj_val=torch.where(active, dobj_ex, st.dual_obj_val),
-            fS=torch.where(a2, st.S, st.fS),
-            fdX=torch.where(a2, st.dX, st.fdX),
-            fdY=torch.where(a2, st.dY, st.fdY),
-        )
+        # post-loop max-iter handling: exact check, then approximate
+        if st.n_unsolved:
+            active = st.status == _UNSOLVED
+            status_ex, pri_ex, dua_ex, obj_ex, dobj_ex = check(Q, L_b, U_b, st.S, st.dX, st.dY,
+                                                               False)
+            status_ap, _, _, obj_ap, _ = check(Q, L_b, U_b, st.S, st.dX, st.dY, True)
+            status_fin = torch.where(
+                status_ex != _UNSOLVED, status_ex,
+                torch.where(status_ap != _UNSOLVED, status_ap, _MAX_ITER),
+            ).to(torch.int32)
+            a2 = active[None]
+            st = replace(
+                st,
+                status=torch.where(active, status_fin, st.status),
+                iters_done=torch.where(active, st.it, st.iters_done),
+                pri_res=torch.where(active, pri_ex, st.pri_res),
+                dua_res=torch.where(active, dua_ex, st.dua_res),
+                obj_val=torch.where(active,
+                                    torch.where(status_ex != _UNSOLVED, obj_ex, obj_ap),
+                                    st.obj_val),
+                dual_obj_val=torch.where(active, dobj_ex, st.dual_obj_val),
+                fS=torch.where(a2, st.S, st.fS),
+                fdX=torch.where(a2, st.dX, st.fdX),
+                fdY=torch.where(a2, st.dY, st.fdY),
+            )
 
-    infeasible = torch.isin(
-        st.status, torch.tensor([_PRIM_INF, _PRIM_INF_INACC, _DUAL_INF, _DUAL_INF_INACC],
-                                dtype=torch.int32, device=dev))[None]
+    with tracing.span('sync', h2d=16):
+        codes = torch.tensor([_PRIM_INF, _PRIM_INF_INACC, _DUAL_INF, _DUAL_INF_INACC],
+                             dtype=torch.int32, device=dev)
+    infeasible = torch.isin(st.status, codes)[None]
     unscaled = not settings.scaled_termination
     fX = st.fS[:n]
     fY = st.fS[n + m:]
@@ -522,8 +534,9 @@ def shared_setup(P, A, q_b, l_b, u_b, settings_host: OracleSettings,
 
     # shared Ruiz from P/A with the batch-mean |q| as cost proxy
     zeros_m = torch.zeros(m, dtype=torch.float64, device=dev)
-    data, scal = core.ruiz_scale(t64(P_full), t64(np.mean(np.abs(q_b), axis=0)), t64(A_d),
-                                 zeros_m, zeros_m, int(settings_host.scaling))
+    with tracing.span('setup.scale'):
+        data, scal = core.ruiz_scale(t64(P_full), t64(np.mean(np.abs(q_b), axis=0)), t64(A_d),
+                                     zeros_m, zeros_m, int(settings_host.scaling))
     P_s = data.P.to(dtype)
     A_s = data.A.to(dtype)
     types = core.constraint_types((scal.E * t64(l_b[0])).to(dtype),

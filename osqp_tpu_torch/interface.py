@@ -17,6 +17,7 @@ import numpy as np
 import scipy.sparse as spa
 import torch
 
+from . import tracing
 from .algebra import algebra_available, algebra_module, default_algebra
 from .constants import (
     CapabilitiesType,
@@ -298,6 +299,7 @@ class OSQP:
 
     # -- data updates ------------------------------------------------------
 
+    @tracing.traced('update')
     def update(self, **kwargs):
         """Update problem vectors and/or matrix values in place."""
         q, l, u = kwargs.get('q'), kwargs.get('l'), kwargs.get('u')
@@ -330,6 +332,7 @@ class OSQP:
 
     # -- lifecycle ---------------------------------------------------------
 
+    @tracing.traced('setup')
     def setup(self, P, q, A, l, u, **settings):
         m, n, P, q, A, l, u = self._infer_mnpqalu(P=P, q=q, A=A, l=l, u=u)
         self._cache.update({'P': P, 'q': q, 'A': A, 'l': l, 'u': u})
@@ -371,6 +374,7 @@ class OSQP:
         g_scale = max(1.0, abs(float(info.obj_val)), abs(float(info.dual_obj_val)))
         return float(max(r_p / p_scale, r_d / d_scale, gap / g_scale))
 
+    @tracing.traced('solve')
     def solve(self, raise_error=None):
         if raise_error is None:
             warnings.warn('The default value of raise_error will change to True in the future.',

@@ -34,7 +34,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from . import backend
+from . import backend, tracing
 from .constants import CapabilitiesType, LinsysSolverType, SolverError
 from .exceptions import OSQPException
 from .ops import ldl as ldl_ops
@@ -103,17 +103,22 @@ class KKTSystem:
         av = _values_at(A_s, self._a_rows, self._a_cols)
         self._static = torch.as_tensor(np.concatenate([pv, av]), device=self._device)
 
+    def _values(self, rho_inv_vec):
+        """The KKT matrix's values in its pattern's order: one gather on the
+        device."""
+        return torch.cat([self._static, -rho_inv_vec.to(torch.float64)])[self._src_map]
+
     def refactor(self, rho_inv_vec):
         """Factor with 1/rho = ``rho_inv_vec``: the symbolic pass the first
         time, then numeric only (K5 on the card).  Checks the inertia;
         returns self."""
-        values = torch.cat([self._static, -rho_inv_vec.to(torch.float64)])[self._src_map]
         try:
-            if self.factor is None:
+            if self.factor is None:  # LDLFactor times its symbolic pass and factorization
                 self.factor = ldl_ops.LDLFactor(self._K_pattern, self._device, self._ordering,
-                                                values=values)
+                                                values=self._values(rho_inv_vec))
             else:
-                self.factor.update_values(values)
+                with tracing.span('ldl.factor'):
+                    self.factor.update_values(self._values(rho_inv_vec))
         except ZeroDivisionError:
             # a quasi-definite KKT matrix has no zero pivot: P + sigma I is
             # not positive definite
@@ -141,8 +146,6 @@ class Solver(backend.Solver):
         super().__init__(dtype=torch.float64, device=device, sparse=True)
         self._ordering = ordering
         self._kkt = None
-        # setup's split on the host clock: Ruiz, symbolic pass, K5
-        self.setup_split = {}
 
     @property
     def _indirect(self) -> bool:
@@ -167,12 +170,9 @@ class Solver(backend.Solver):
         P_full, A, q, l, u = self._ingest(P, q, A, l, u)
         self._is_sparse = True
         self._setup_sparse(P_full, A, q, l, u)
-        t1 = time.perf_counter()
         self._kkt = KKTSystem(self._P_triu_pattern, self._A_pattern, self._device,
                               self._ordering, self._direct())
         self._finish_setup(t0)
-        fac = self._kkt.factor
-        self.setup_split = dict(ruiz_s=t1 - t0, symbolic_s=fac.symbolic_s, factor_s=fac.factor_s)
 
     def _refactorize(self):
         """Numeric refactorization at the current data, sigma and rho."""
@@ -201,7 +201,9 @@ class Solver(backend.Solver):
         n, m = self.n, self.m
         f64 = torch.float64
         it = res.iterates
-        z, y, l, u = torch.stack([it.z, it.y, d.l, d.u]).cpu().numpy()  # one host sync
+        zyl = torch.stack([it.z, it.y, d.l, d.u])
+        with tracing.span('sync', d2h=zyl.nbytes):
+            z, y, l, u = zyl.cpu().numpy()  # one host sync
         ind_low = np.flatnonzero(z - l < -y)
         ind_upp = np.flatnonzero(u - z < y)
         idx = np.concatenate([ind_low, ind_upp])
@@ -243,7 +245,8 @@ class Solver(backend.Solver):
             z_pol = y_pol = x_pol.new_zeros(0)
         cs = core_settings(stg, f64)
         pri, dua, obj, *_ = core.compute_info(d, sc, x_pol, z_pol, y_pol, cs)
-        pri, dua, obj = (float(v) for v in torch.stack([pri, dua, obj]).cpu())
+        with tracing.span('sync', d2h=24):
+            pri, dua, obj = (float(v) for v in torch.stack([pri, dua, obj]).cpu())
         pri0, dua0 = float(res.pri_res), float(res.dua_res)
         success = ((pri < pri0 and dua < dua0) or (pri < pri0 and dua0 < 1e-10)
                    or (dua < dua0 and pri0 < 1e-10))

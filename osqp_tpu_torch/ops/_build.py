@@ -19,6 +19,8 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from .. import tracing
+
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -76,12 +78,14 @@ def build_all(names) -> list[Path]:
 def load_library(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built on first use in this process."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
+        with tracing.span('kernel.load'):
+            _loaded[name] = ctypes.CDLL(str(build(name)))
     return _loaded[name]
 
 
 def load_host_library(name: str) -> ctypes.CDLL:
     """The host library ``name`` (``csrc/<name>.cpp``), built on first use."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build_host(name)))
+        with tracing.span('kernel.load'):
+            _loaded[name] = ctypes.CDLL(str(build_host(name)))
     return _loaded[name]

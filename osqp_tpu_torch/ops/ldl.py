@@ -39,13 +39,13 @@ factorizations and ``solve_launches`` K6's launches, one a solve.
 from __future__ import annotations
 
 import ctypes
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 
 # Counts on the card since the last reset, read by chip_smoke.py: K5's
@@ -593,37 +593,37 @@ class LDLFactor:
     plain versions, up to ``CPU_MAX_N``."""
 
     def __init__(self, K_triu, device=None, ordering: str = 'rcm', values=None):
-        t0 = time.perf_counter()
         K = sp.csc_matrix(K_triu)
-        self.sym = symbolic(K, ordering)
-        self.n = self.sym.n
-        self.device = resolve_device(device)
-        self._cuda = self.device.type == 'cuda'
-        if not self._cuda and self.n > CPU_MAX_N:
-            raise ValueError(f'the plain LDL factorization densifies: n = {self.n} is past '
-                             f'the CPU limit {CPU_MAX_N}')
-        s = self.sym
-        dev = self.device
+        with tracing.span('ldl.symbolic'):  # the host analysis and the pattern's copies
+            self.sym = symbolic(K, ordering)
+            self.n = self.sym.n
+            self.device = resolve_device(device)
+            self._cuda = self.device.type == 'cuda'
+            if not self._cuda and self.n > CPU_MAX_N:
+                raise ValueError(f'the plain LDL factorization densifies: n = {self.n} is '
+                                 f'past the CPU limit {CPU_MAX_N}')
+            s = self.sym
+            dev = self.device
 
-        def i32(a):
-            return torch.as_tensor(_i32(a), device=dev)
+            def i32(a):
+                return torch.as_tensor(_i32(a), device=dev)
 
-        self._Ap, self._Ai, self._Lp, self._Li = i32(s.Ap), i32(s.Ai), i32(s.Lp), i32(s.Li)
-        self._perm = None if s.perm is None else torch.as_tensor(s.perm, device=dev)
-        self._data_map = (None if s.data_map is None
-                          else torch.as_tensor(s.data_map, device=dev))
-        nnz = max(s.nnz_L, 1)
-        f64 = dict(dtype=torch.float64, device=dev)
-        self.Lx = torch.zeros(nnz, **f64)
-        self.D = torch.zeros(self.n, **f64)
-        self.Dinv = torch.zeros(self.n, **f64)
-        self._L_dense = None
-        if self._cuda:
-            self.Ax = torch.zeros(len(s.Ai), **f64)
-            self._init_cuda()
-        self.n_positive = None
-        self.symbolic_s = time.perf_counter() - t0  # host analysis and the pattern's copies
-        self.update_values(K.data if values is None else values)
+            self._Ap, self._Ai, self._Lp, self._Li = i32(s.Ap), i32(s.Ai), i32(s.Lp), i32(s.Li)
+            self._perm = None if s.perm is None else torch.as_tensor(s.perm, device=dev)
+            self._data_map = (None if s.data_map is None
+                              else torch.as_tensor(s.data_map, device=dev))
+            nnz = max(s.nnz_L, 1)
+            f64 = dict(dtype=torch.float64, device=dev)
+            self.Lx = torch.zeros(nnz, **f64)
+            self.D = torch.zeros(self.n, **f64)
+            self.Dinv = torch.zeros(self.n, **f64)
+            self._L_dense = None
+            if self._cuda:
+                self.Ax = torch.zeros(len(s.Ai), **f64)
+                self._init_cuda()
+            self.n_positive = None
+        with tracing.span('ldl.factor'):
+            self.update_values(K.data if values is None else values)
 
     def _init_cuda(self):
         """The pattern, the supernodes and the schedules on the card, K5's and
@@ -683,8 +683,7 @@ class LDLFactor:
     def update_values(self, new_data):
         """Numeric-only refactorization with new values on the same pattern,
         given in the caller's triu-CSC data order (tensor or array).  Raises
-        ``ZeroDivisionError`` on a zero pivot.  ``factor_s`` is its time on
-        the host clock (on the card up to the sync that reads the pivots)."""
+        ``ZeroDivisionError`` on a zero pivot."""
         Ax = self.values(new_data)
         if self._cuda:  # K5's argument block holds this buffer
             self.Ax.copy_(Ax)
@@ -694,7 +693,6 @@ class LDLFactor:
 
     def factor(self):
         """The numeric factorization of the current values ``Ax``."""
-        t0 = time.perf_counter()
         if self._cuda:
             npos, zero = self._factor_cuda()
         else:
@@ -705,7 +703,6 @@ class LDLFactor:
             zeros = torch.nonzero(D == 0)
             zero = int(zeros[0, 0]) if zeros.numel() else -1
             npos = int((D > 0).sum())
-        self.factor_s = time.perf_counter() - t0
         if zero >= 0:
             raise ZeroDivisionError(f'zero pivot at column {zero}')
         self.n_positive = npos
@@ -714,7 +711,9 @@ class LDLFactor:
         """K5; then one host sync reads the positive pivots and the first
         zero pivot (-1 if none)."""
         self.launch_factor()
-        npos, zero_rev = (int(v) for v in self._dev['stats'].cpu())
+        stats = self._dev['stats']
+        with tracing.span('sync', d2h=stats.nbytes):
+            npos, zero_rev = (int(v) for v in stats.cpu())
         return npos, (self.n - zero_rev if zero_rev > 0 else -1)
 
     def launch_factor(self):

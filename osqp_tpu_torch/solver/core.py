@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import spmv
 from ..settings import CoreSettings, np_dtype
 from ..utils.printing import print_loop_row
@@ -667,7 +668,9 @@ def rho_estimate_fn(data: QPData, x, z, y, rho):
 def _host(st: LoopState, *tensors):
     """Copy 0-d tensors to the host in one transfer: one host sync."""
     st.host_syncs += 1
-    return torch.stack([t.to(tensors[0].dtype) for t in tensors]).cpu().numpy()
+    vals = torch.stack([t.to(tensors[0].dtype) for t in tensors])
+    with tracing.span('sync', d2h=vals.nbytes):
+        return vals.cpu().numpy()
 
 
 def adapt_rho(data: QPData, settings: CoreSettings, st: LoopState, indirect: bool):
@@ -679,18 +682,20 @@ def adapt_rho(data: QPData, settings: CoreSettings, st: LoopState, indirect: boo
     rho_new = f(_host(st, rho_estimate_fn(data, st.x, st.z, st.y, st.rho.rho))[0])
     tol = settings.adaptive_rho_tolerance
     if rho_new > tol * st.rho.rho or rho_new < st.rho.rho / tol:
-        dtype = st.x.dtype
-        vec = rho_vec_from_types(st.rho.constr_type, rho_new, settings.rho_is_vec, dtype)
-        inv = torch.where(vec > 0, 1.0 / vec, 0.0)
-        st.rho = RhoState(rho=clip_rho(rho_new, dtype), rho_vec=vec, rho_inv_vec=inv,
-                          constr_type=st.rho.constr_type)
-        if st.factor.ldl is not None:
-            st.factor = st.factor._replace(ldl=st.factor.ldl.refactor(inv))
-            st.host_syncs += 1
-        elif indirect:
-            st.factor = st.factor._replace(diag=build_M_diag(data.P, data.A, settings.sigma, vec))
-        else:
-            st.factor = factorize(data.P, data.A, settings.sigma, vec)
+        with tracing.span('rho.update'):
+            dtype = st.x.dtype
+            vec = rho_vec_from_types(st.rho.constr_type, rho_new, settings.rho_is_vec, dtype)
+            inv = torch.where(vec > 0, 1.0 / vec, 0.0)
+            st.rho = RhoState(rho=clip_rho(rho_new, dtype), rho_vec=vec, rho_inv_vec=inv,
+                              constr_type=st.rho.constr_type)
+            if st.factor.ldl is not None:
+                st.factor = st.factor._replace(ldl=st.factor.ldl.refactor(inv))
+                st.host_syncs += 1
+            elif indirect:
+                st.factor = st.factor._replace(diag=build_M_diag(data.P, data.A, settings.sigma,
+                                                                 vec))
+            else:
+                st.factor = factorize(data.P, data.A, settings.sigma, vec)
         st.rho_updates += 1
     st.rho_estimate = rho_new
 
@@ -746,59 +751,60 @@ def solve_scaled(data: QPData, scal: Scaling, settings: CoreSettings, rho: RhoSt
     interval = settings.adaptive_rho_interval
     epochs_per_adapt = max((interval + epoch_len - 1) // max(epoch_len, 1), 1)
 
-    while st.it < iter_cap and st.status == _UNSOLVED:
-        this_epoch = min(epoch_len, iter_cap - st.it)
-        for _ in range(this_epoch):
-            admm_iteration(data, settings, st, indirect)
-        st.it += this_epoch
+    with tracing.span('solve.loop'):
+        while st.it < iter_cap and st.status == _UNSOLVED:
+            this_epoch = min(epoch_len, iter_cap - st.it)
+            for _ in range(this_epoch):
+                admm_iteration(data, settings, st, indirect)
+            st.it += this_epoch
 
-        pri_before, dua_before = st.pri_res, st.dua_res
-        do_check = ct > 0 and st.it % max(ct, 1) == 0
-        if do_check:
+            pri_before, dua_before = st.pri_res, st.dua_res
+            do_check = ct > 0 and st.it % max(ct, 1) == 0
+            if do_check:
+                (st.status, st.pri_res, st.dua_res, st.obj_val, st.dual_obj_val,
+                 st.rel_kkt) = _run_check(data, scal, settings, st)
+            # primal-dual integral: iteration integral of the capped relative
+            # KKT error (last-known value; converted to time by the backend)
+            st.primdual_acc = st.primdual_acc + f(this_epoch) * np.minimum(f(1), st.rel_kkt)
+            if verbose and do_check and st.it % PRINT_INTERVAL == 0:
+                print_loop_row(st.it, st.obj_val, st.pri_res, st.dua_res, st.rho.rho)
+
+            # Adaptive CG tolerance (indirect mode): monotone tightening toward
+            # the ADMM residual scale, with a forced 1/cg_tol_reduction cut
+            # whenever both residuals stall; only at check epochs.
+            if do_check:
+                candidate = settings.cg_tol_fraction * np.sqrt(st.pri_res * st.dua_res)
+                new_cg_tol = np.clip(np.minimum(st.cg_tol, candidate), settings.cg_eps_min, f(0.15))
+                stalled = (st.pri_res > f(0.5) * pri_before) and (st.dua_res > f(0.5) * dua_before)
+                if stalled:
+                    reduction = np.maximum(settings.cg_tol_reduction, f(1))
+                    new_cg_tol = np.maximum(new_cg_tol / reduction, settings.cg_eps_min)
+                st.cg_tol = f(new_cg_tol)
+
+            epoch_idx = (st.it + epoch_len - 1) // max(epoch_len, 1)
+            if not settings.adaptive_rho or st.status != _UNSOLVED:
+                pass
+            elif adapt_after is not None:
+                if do_check and time.perf_counter() - adapt_after[0] > adapt_after[1]:
+                    adapt_rho(data, settings, st, indirect)
+                    epochs_per_adapt = max(-(-max(st.it, ct) // max(epoch_len, 1)), 1)
+                    adapt_after = None
+            elif interval > 0 and epoch_idx % epochs_per_adapt == 0:
+                adapt_rho(data, settings, st, indirect)
+
+        # Post-loop bookkeeping (ref _osqp.py:1248-1275): if no terminal status,
+        # re-check exactly, then approximately (10x eps), else MAX_ITER_REACHED.
+        if st.status == _UNSOLVED and st.it >= settings.max_iter:
             (st.status, st.pri_res, st.dua_res, st.obj_val, st.dual_obj_val,
              st.rel_kkt) = _run_check(data, scal, settings, st)
-        # primal-dual integral: iteration integral of the capped relative
-        # KKT error (last-known value; converted to time by the backend)
-        st.primdual_acc = st.primdual_acc + f(this_epoch) * np.minimum(f(1), st.rel_kkt)
-        if verbose and do_check and st.it % PRINT_INTERVAL == 0:
-            print_loop_row(st.it, st.obj_val, st.pri_res, st.dua_res, st.rho.rho)
+            if st.status == _UNSOLVED:
+                status, _, _, obj, _, _ = _run_check(data, scal, settings, st, approximate=True)
+                st.status = _MAX_ITER if status == _UNSOLVED else status
+                # keep the accurate residuals for reporting
+                if st.status in (_PRIM_INF_INACC, _DUAL_INF_INACC, _NON_CVX):
+                    st.obj_val = obj
 
-        # Adaptive CG tolerance (indirect mode): monotone tightening toward
-        # the ADMM residual scale, with a forced 1/cg_tol_reduction cut
-        # whenever both residuals stall; only at check epochs.
-        if do_check:
-            candidate = settings.cg_tol_fraction * np.sqrt(st.pri_res * st.dua_res)
-            new_cg_tol = np.clip(np.minimum(st.cg_tol, candidate), settings.cg_eps_min, f(0.15))
-            stalled = (st.pri_res > f(0.5) * pri_before) and (st.dua_res > f(0.5) * dua_before)
-            if stalled:
-                reduction = np.maximum(settings.cg_tol_reduction, f(1))
-                new_cg_tol = np.maximum(new_cg_tol / reduction, settings.cg_eps_min)
-            st.cg_tol = f(new_cg_tol)
-
-        epoch_idx = (st.it + epoch_len - 1) // max(epoch_len, 1)
-        if not settings.adaptive_rho or st.status != _UNSOLVED:
-            pass
-        elif adapt_after is not None:
-            if do_check and time.perf_counter() - adapt_after[0] > adapt_after[1]:
-                adapt_rho(data, settings, st, indirect)
-                epochs_per_adapt = max(-(-max(st.it, ct) // max(epoch_len, 1)), 1)
-                adapt_after = None
-        elif interval > 0 and epoch_idx % epochs_per_adapt == 0:
-            adapt_rho(data, settings, st, indirect)
-
-    # Post-loop bookkeeping (ref _osqp.py:1248-1275): if no terminal status,
-    # re-check exactly, then approximately (10x eps), else MAX_ITER_REACHED.
-    if st.status == _UNSOLVED and st.it >= settings.max_iter:
-        (st.status, st.pri_res, st.dua_res, st.obj_val, st.dual_obj_val,
-         st.rel_kkt) = _run_check(data, scal, settings, st)
-        if st.status == _UNSOLVED:
-            status, _, _, obj, _, _ = _run_check(data, scal, settings, st, approximate=True)
-            st.status = _MAX_ITER if status == _UNSOLVED else status
-            # keep the accurate residuals for reporting
-            if st.status in (_PRIM_INF_INACC, _DUAL_INF_INACC, _NON_CVX):
-                st.obj_val = obj
-
-    rho_est = f(_host(st, rho_estimate_fn(data, st.x, st.z, st.y, st.rho.rho))[0])
+        rho_est = f(_host(st, rho_estimate_fn(data, st.x, st.z, st.y, st.rho.rho))[0])
 
     # Unscale the solution (ref _osqp.py:1098-1115)
     infeasible = st.status in (_PRIM_INF, _PRIM_INF_INACC, _DUAL_INF, _DUAL_INF_INACC)
