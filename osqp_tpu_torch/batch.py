@@ -13,6 +13,8 @@ vmap engine when P or A carries a batch axis and the shared-structure engine
 
 from __future__ import annotations
 
+import itertools
+import math
 import time
 from types import SimpleNamespace
 
@@ -21,7 +23,7 @@ import torch
 
 from . import tracing
 from .batch_shared import settings_scale_q, shared_setup, shared_solve
-from .constants import LinsysSolverType, status_string
+from .constants import LinsysSolverType, status_strings
 from .device import resolve_device
 from .ops.shared_epoch import iter_halves
 from .settings import CoreSettings, OracleSettings, core_settings
@@ -126,11 +128,6 @@ def mpc_rollout(data, scal, settings: CoreSettings, rho, factor, iterates, q_seq
 # The JAX package donates the carry's buffers here; torch has no donation,
 # so the continuation entry point is the same function.
 mpc_rollout_donated = mpc_rollout
-
-
-def _host(t):
-    with tracing.span('sync', d2h=t.nbytes):
-        return t.cpu().numpy()
 
 
 class BatchedOSQP:
@@ -326,46 +323,91 @@ class BatchedOSQP:
         self._sh_Z = self._zeros(self.m)
         self._sh_Y = self._zeros(self.m)
 
-    def _tensor(self, v):
-        # the cast on the host, then the copy to the device (a sync: torch
-        # copies pageable memory synchronously)
-        t = torch.tensor(np.asarray(v), dtype=self._dtype)
-        with tracing.span('sync', h2d=t.nbytes):
-            return t.to(self._device)
+    # -- both engines: the host's traffic through pinned staging ----------
 
-    # -- both engines ------------------------------------------------------
+    @property
+    def _pin(self):
+        return self._device.type == 'cuda'
+
+    def _stage(self, parts):
+        """``parts``, pairs of an array (numpy, or a CPU tensor) and a shape
+        it broadcasts to, on the device at the working dtype: cast through
+        float64, as ``torch.tensor(np.asarray(v, np.float64), dtype)``
+        would, in one host pass into one fresh buffer (pinned on CUDA), then
+        copied in one copy that does not wait.  The buffer is the solver's
+        own, so a caller may change its arrays once this returns; a fresh
+        block of torch's caching host allocator is not reused before the
+        copy that reads it has run."""
+        bounds = list(itertools.pairwise(
+            itertools.accumulate((math.prod(shape) for _, shape in parts), initial=0)))
+        total = bounds[-1][1]
+        with tracing.span('stage', h2d=total * torch.finfo(self._dtype).bits // 8, pinned=True):
+            host = torch.empty(total, dtype=self._dtype, pin_memory=self._pin)
+            flat = host.numpy()
+            with np.errstate(over='ignore'):  # beyond float32's range: inf, as torch casts
+                for (v, shape), (a, b) in zip(parts, bounds):
+                    np.copyto(flat[a:b].reshape(shape), np.asarray(v, np.float64),
+                              casting='same_kind')
+            dev = host.to(self._device, non_blocking=True)
+        return [dev[a:b].view(shape) for (_, shape), (a, b) in zip(parts, bounds)]
+
+    def _fetch(self, arrays: dict) -> dict:
+        """The tensors of ``arrays`` on the host, as numpy arrays of their
+        dtypes, shapes and values: gathered on the device into one buffer
+        (transposes included), brought back in one copy and one wait into a
+        fresh host buffer (pinned on CUDA), and returned as views into it.
+        Each call has its own buffer, so a later solve overwrites no array a
+        caller keeps."""
+        place, off = [], 0
+        for t in arrays.values():
+            place.append(off)
+            off += -(-t.nbytes // 16) * 16  # each array 16-byte aligned
+        dev = torch.empty(off, dtype=torch.uint8, device=self._device)
+        for t, o in zip(arrays.values(), place):
+            dev[o:o + t.nbytes].view(t.dtype).view(t.shape).copy_(t)
+        host = torch.empty(off, dtype=torch.uint8, pin_memory=self._pin)
+        with tracing.span('sync', d2h=off, pinned=True):
+            host.copy_(dev)
+        return {name: host[o:o + t.nbytes].view(t.dtype).view(t.shape).numpy()
+                for (name, t), o in zip(arrays.items(), place)}
 
     @tracing.traced('update')
     def update(self, q=None, l=None, u=None):
         """Stage batched vector updates; applied at the next solve."""
-        for name, v in (('q', q), ('l', l), ('u', u)):
-            if v is not None:
-                dim = self.n if name == 'q' else self.m
-                v = np.broadcast_to(np.asarray(v, np.float64), (self.B, dim))
-                if name == 'l':
-                    v = np.maximum(v, -1e30)
-                if name == 'u':
-                    v = np.minimum(v, 1e30)
-                self._pending[name] = self._tensor(v)
+        given = {name: v for name, v in (('q', q), ('l', l), ('u', u)) if v is not None}
+        if not given:
+            return
+        staged = self._stage([(v, (self.B, self.n if name == 'q' else self.m))
+                              for name, v in given.items()])
+        for name, t in zip(given, staged):
+            # the clip after the cast: rounding is monotone, so the values
+            # are those of the clip before it
+            if name == 'l':
+                t.clamp_(min=-1e30)
+            if name == 'u':
+                t.clamp_(max=1e30)
+            self._pending[name] = t
 
     def warm_start(self, x=None, y=None):
         if self._engine == 'shared':
             scal = self._sh_scal
             if x is not None:
-                xs = scal.Dinv[:, None] * self._tensor(np.asarray(x, np.float64).T)
+                (xt,) = self._stage([(np.asarray(x, np.float64).T, (self.n, self.B))])
+                xs = scal.Dinv[:, None] * xt
                 self._sh_X = xs
                 self._sh_Z = self._sh_A @ xs
             if y is not None:
-                self._sh_Y = scal.c * (scal.Einv[:, None]
-                                       * self._tensor(np.asarray(y, np.float64).T))
+                (yt,) = self._stage([(np.asarray(y, np.float64).T, (self.m, self.B))])
+                self._sh_Y = scal.c * (scal.Einv[:, None] * yt)
             return
         scal, it = self._scal, self._iterates
         if x is not None:
-            xs = scal.Dinv * self._tensor(np.asarray(x, np.float64))
+            (xt,) = self._stage([(x, (self.B, self.n))])
+            xs = scal.Dinv * xt
             it = it._replace(x=xs, z=core._mv(self._data.A, xs))
         if y is not None:
-            it = it._replace(y=scal.c.unsqueeze(-1)
-                             * (scal.Einv * self._tensor(np.asarray(y, np.float64))))
+            (yt,) = self._stage([(y, (self.B, self.m))])
+            it = it._replace(y=scal.c.unsqueeze(-1) * (scal.Einv * yt))
         self._iterates = it
 
     @tracing.traced('solve')
@@ -374,32 +416,32 @@ class BatchedOSQP:
         if self._engine == 'shared':
             return self._solve_shared(t0)
         res = self._solve_vmap()
-        status_vals = _host(res.status)
+        h = self._fetch(dict(
+            x=res.x, y=res.y, prim_inf_cert=res.prim_inf_cert, dual_inf_cert=res.dual_inf_cert,
+            status=res.status, iters=res.iters, obj_val=res.obj_val,
+            dual_obj_val=res.dual_obj_val, duality_gap=res.duality_gap, pri_res=res.pri_res,
+            dua_res=res.dua_res, rho_estimate=res.rho_estimate, rho_updates=res.rho_updates,
+            cg_iters=res.cg_iters))
         solve_time = time.perf_counter() - t0
         info = SimpleNamespace(
-            status_val=status_vals,
-            status=[status_string(s) for s in status_vals],
-            iter=_host(res.iters),
-            obj_val=_host(res.obj_val),
-            dual_obj_val=_host(res.dual_obj_val),
-            duality_gap=_host(res.duality_gap),
-            prim_res=_host(res.pri_res),
-            dual_res=_host(res.dua_res),
-            rho_estimate=_host(res.rho_estimate),
-            rho_updates=_host(res.rho_updates),
-            cg_iters=_host(res.cg_iters),
+            status_val=h['status'],
+            status=status_strings(h['status']),
+            iter=h['iters'],
+            obj_val=h['obj_val'],
+            dual_obj_val=h['dual_obj_val'],
+            duality_gap=h['duality_gap'],
+            prim_res=h['pri_res'],
+            dual_res=h['dua_res'],
+            rho_estimate=h['rho_estimate'],
+            rho_updates=h['rho_updates'],
+            cg_iters=h['cg_iters'],
             host_syncs=res.host_syncs,
             solve_time=solve_time,
             setup_time=self.setup_time,
             run_time=self.setup_time + solve_time,
         )
-        return SimpleNamespace(
-            x=_host(res.x),
-            y=_host(res.y),
-            prim_inf_cert=_host(res.prim_inf_cert),
-            dual_inf_cert=_host(res.dual_inf_cert),
-            info=info,
-        )
+        return SimpleNamespace(x=h['x'], y=h['y'], prim_inf_cert=h['prim_inf_cert'],
+                               dual_inf_cert=h['dual_inf_cert'], info=info)
 
     def _solve_shared(self, t0):
         stg = core_settings(self._stg, self._dtype)
@@ -425,17 +467,22 @@ class BatchedOSQP:
         self._sh_Minv, self._sh_M = out['Minv'], out['M']
         host_syncs = tracing.thread_syncs() - syncs
 
-        status_vals = _host(out['status'])
+        h = self._fetch(dict(
+            x=out['x'], y=out['y'], prim_inf_cert=out['prim_inf_cert'],
+            dual_inf_cert=out['dual_inf_cert'], status=out['status'], iters=out['iters'],
+            obj_val=out['obj_val'], dual_obj_val=out['dual_obj_val'],
+            duality_gap=out['obj_val'] - out['dual_obj_val'], pri_res=out['pri_res'],
+            dua_res=out['dua_res']))
         solve_time = time.perf_counter() - t0
         info = SimpleNamespace(
-            status_val=status_vals,
-            status=[status_string(s) for s in status_vals],
-            iter=_host(out['iters']),
-            obj_val=_host(out['obj_val']),
-            dual_obj_val=_host(out['dual_obj_val']),
-            duality_gap=_host(out['obj_val'] - out['dual_obj_val']),
-            prim_res=_host(out['pri_res']),
-            dual_res=_host(out['dua_res']),
+            status_val=h['status'],
+            status=status_strings(h['status']),
+            iter=h['iters'],
+            obj_val=h['obj_val'],
+            dual_obj_val=h['dual_obj_val'],
+            duality_gap=h['duality_gap'],
+            prim_res=h['pri_res'],
+            dual_res=h['dua_res'],
             rho_estimate=float(out['rho']),
             rho_updates=int(out['rho_updates']),
             host_syncs=host_syncs,
@@ -443,13 +490,8 @@ class BatchedOSQP:
             setup_time=self.setup_time,
             run_time=self.setup_time + solve_time,
         )
-        return SimpleNamespace(
-            x=_host(out['x']),
-            y=_host(out['y']),
-            prim_inf_cert=_host(out['prim_inf_cert']),
-            dual_inf_cert=_host(out['dual_inf_cert']),
-            info=info,
-        )
+        return SimpleNamespace(x=h['x'], y=h['y'], prim_inf_cert=h['prim_inf_cert'],
+                               dual_inf_cert=h['dual_inf_cert'], info=info)
 
 
 def _ndim(v):

@@ -21,6 +21,7 @@ decisions are Python ``if``s on those values.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -455,10 +456,7 @@ def shared_solve(P, A, Q, L_b, U_b, scal: Scaling, settings: CoreSettings,
                 fdY=torch.where(a2, st.dY, st.fdY),
             )
 
-    with tracing.span('sync', h2d=16):
-        codes = torch.tensor([_PRIM_INF, _PRIM_INF_INACC, _DUAL_INF, _DUAL_INF_INACC],
-                             dtype=torch.int32, device=dev)
-    infeasible = torch.isin(st.status, codes)[None]
+    infeasible = torch.isin(st.status, _infeasible_codes(dev))[None]
     unscaled = not settings.scaled_termination
     fX = st.fS[:n]
     fY = st.fS[n + m:]
@@ -476,6 +474,15 @@ def shared_solve(P, A, Q, L_b, U_b, scal: Scaling, settings: CoreSettings,
         rho_updates=st.rho_updates,
         X=st.S[:n], Z=st.S[n:n + m], Y=st.S[n + m:],
     )
+
+
+@functools.cache
+def _infeasible_codes(dev):
+    """The four infeasibility statuses as a tensor on ``dev``, copied there
+    once per device."""
+    with tracing.span('sync', h2d=16):
+        return torch.tensor([_PRIM_INF, _PRIM_INF_INACC, _DUAL_INF, _DUAL_INF_INACC],
+                            dtype=torch.int32, device=dev)
 
 
 def shared_mpc_rollout(P, A, Q0, L_b, U_b, scal, settings, rho0, Minv, M, rho_vec,

@@ -9,6 +9,8 @@ from __future__ import annotations
 import math
 from enum import IntEnum
 
+import numpy as np
+
 # Algorithm parameter bounds (OSQP reference purepy _osqp.py:24-45)
 RHO_MIN = 1e-06
 RHO_MAX = 1e06
@@ -94,7 +96,20 @@ _STATUS_STRINGS = {
 
 
 def status_string(status_val: int) -> str:
-    return _STATUS_STRINGS.get(SolverStatus(int(status_val)), 'unknown')
+    """The name of a status code; ``'unknown'`` for a code that is none."""
+    return _STATUS_STRINGS.get(int(status_val), 'unknown')
+
+
+# status_string of every code from 0 to the largest, for a lookup by index
+_STATUS_TABLE = np.array([status_string(k) for k in range(max(SolverStatus) + 1)], object)
+
+
+def status_strings(status_vals) -> list:
+    """``[status_string(s) for s in status_vals]`` of an integer array, by one
+    lookup in a table of names."""
+    v = np.asarray(status_vals)
+    known = (v >= 0) & (v < len(_STATUS_TABLE))
+    return _STATUS_TABLE[np.where(known, v, 0)].tolist()
 
 
 # Constants exposed by name, as the reference's extension module exposes them.

@@ -10,10 +10,14 @@ span's name with ``.`` as ``_`` (``solve.loop`` counts into
 ``solve_loop_ns``).  A ``sync`` span (the host blocked on the card: a copy
 between host and device memory, or a value the host reads) also counts the
 bytes it copies, ``h2d_bytes`` and ``d2h_bytes``, and, inside a
-``solve.loop`` span, ``sync_loop_calls`` and ``sync_loop_ns``.  The counters
-only grow; read them as attributes of this module, ``getattr(tracing,
-name)`` (or all of them through ``counters()``), before and after the work
-to be measured.
+``solve.loop`` span, ``sync_loop_calls`` and ``sync_loop_ns``.  A ``stage``
+span (a host pass that casts vectors into one host buffer, and the enqueue
+of the buffer's copy to the device, which does not wait) counts the bytes it
+sends in ``h2d_bytes`` too.  The copies through pinned staging (that one,
+and the answer's one copy back) count also in ``pinned_h2d_bytes`` and
+``pinned_d2h_bytes``, on the CPU as on the card.  The counters only grow;
+read them as attributes of this module, ``getattr(tracing, name)`` (or all
+of them through ``counters()``), before and after the work to be measured.
 
 ========================  ==================================================
 span                      covers
@@ -28,6 +32,9 @@ span                      covers
                           process: its build where none is cached, the dlopen
 ``update``                the whole ``update`` call: ingest, checks, casts,
                           the copies to the device
+``stage``                 ``BatchedOSQP``'s cast of the vectors of an
+                          ``update`` or ``warm_start`` into one host buffer,
+                          and the enqueue of its copy to the device
 ``solve``                 the whole ``solve`` call, up to the answer on the host
 ``solve.loop``            the ADMM loop of a solve (its epochs, checks, rho
                           adaptation, the shared engine's compaction)
@@ -53,18 +60,20 @@ from threading import get_ident
 from time import perf_counter_ns
 
 SPANS = ('setup', 'setup.scale', 'ldl.symbolic', 'ldl.factor', 'kernel.load', 'update',
-         'solve', 'solve.loop', 'rho.update', 'sync')
+         'stage', 'solve', 'solve.loop', 'rho.update', 'sync')
 
 # each span's three counters sit at 3 i, 3 i + 1, 3 i + 2 of a thread's list
 COUNTERS = tuple(f"{name.replace('.', '_')}_{what}" for name in SPANS
                  for what in ('calls', 'ns', 'self_ns'))
-COUNTERS += ('sync_loop_calls', 'sync_loop_ns', 'h2d_bytes', 'd2h_bytes')
+COUNTERS += ('sync_loop_calls', 'sync_loop_ns', 'h2d_bytes', 'd2h_bytes', 'pinned_h2d_bytes',
+             'pinned_d2h_bytes')
 _INDEX = {k: i for i, k in enumerate(COUNTERS)}
 _BASE = {name: 3 * i for i, name in enumerate(SPANS)}
 _SYNC = _BASE['sync']
 _LOOP = _BASE['solve.loop']
 _SYNC_LOOP, _SYNC_LOOP_NS = _INDEX['sync_loop_calls'], _INDEX['sync_loop_ns']
 _H2D, _D2H = _INDEX['h2d_bytes'], _INDEX['d2h_bytes']
+_PINNED_H2D, _PINNED_D2H = _INDEX['pinned_h2d_bytes'], _INDEX['pinned_d2h_bytes']
 
 _lock = threading.Lock()  # guards _all, the list of every thread's counts
 _all = []
@@ -165,14 +174,17 @@ class _Span:
 _SPAN = {name: _Span(name) for name in SPANS}
 
 
-def span(name: str, h2d: int = 0, d2h: int = 0) -> _Span:
+def span(name: str, h2d: int = 0, d2h: int = 0, pinned: bool = False) -> _Span:
     """The span named ``name`` (one of ``SPANS``), to enter with ``with``.
-    ``h2d`` and ``d2h``: the bytes a ``sync`` span copies to and from the
-    device."""
+    ``h2d`` and ``d2h``: the bytes the span copies to and from the device;
+    ``pinned``: those copies go through pinned staging."""
     if h2d or d2h:
         c = (_main if get_ident() == _MAIN else _other()).counts
         c[_H2D] += h2d
         c[_D2H] += d2h
+        if pinned:
+            c[_PINNED_H2D] += h2d
+            c[_PINNED_D2H] += d2h
     return _SPAN[name]
 
 

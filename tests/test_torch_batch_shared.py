@@ -19,6 +19,7 @@ from osqp_tpu import batch_shared as jbs
 
 from osqp_tpu_torch import BatchedOSQP
 from osqp_tpu_torch import batch_shared as tbs
+from osqp_tpu_torch.constants import status_string
 from osqp_tpu_torch.convert import from_jax_setup
 from osqp_tpu_torch.settings import OracleSettings, default_core_settings
 
@@ -281,3 +282,84 @@ def test_batched_osqp_unported_paths_raise():
         BatchedOSQP(device='cpu', engine='loop')
     with pytest.raises(ValueError, match='kkt_method must be'):
         BatchedOSQP(device='cpu', kkt_method='lu')
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_update_stages_the_host_clip_bit_for_bit(dtype):
+    """``update`` casts into one staging buffer and clips l and u on the
+    device after the cast: the pending q, l and u are, bit for bit, the
+    float64 clip cast afterwards (``torch.tensor(np.minimum(np.maximum(v,
+    -1e30), 1e30), dtype)``), for infinities, NaN, values beyond 1e30 and
+    beyond float32's range, and for (dim,) vectors broadcast to the batch."""
+    B, n, m = 6, 4, 5
+    P, A, q, l, u = _problems(B, n, m, seed=5)
+    s = BatchedOSQP(device='cpu', dtype=dtype).setup(P, q, A, l, u)
+    special = np.array([np.inf, -np.inf, np.nan, 1e31, -1e31, 1e39, -1e39, 1e30, -1e30,
+                        3.4e38, -0.0, 1 / 3])
+    rng = np.random.default_rng(6)
+    cases = [
+        (rng.choice(special, (B, n)), rng.choice(special, (B, m)), rng.choice(special, (B, m))),
+        (rng.choice(special, n), rng.choice(special, m), special[rng.integers(0, 12, m)]),
+        (q.astype(np.float32), l, u[0]),
+    ]
+    for qv, lv, uv in cases:
+        s.update(q=qv, l=lv, u=uv)
+        want = dict(q=np.broadcast_to(np.asarray(qv, np.float64), (B, n)),
+                    l=np.maximum(np.broadcast_to(lv, (B, m)), -1e30),
+                    u=np.minimum(np.broadcast_to(uv, (B, m)), 1e30))
+        for name, w in want.items():
+            got = s._pending[name]
+            assert got.shape == w.shape and got.dtype == dtype
+            assert torch.equal(_bits(got), _bits(torch.tensor(w, dtype=dtype))), name
+        s._pending = {}
+
+
+@pytest.mark.parametrize('engine', ['shared', 'vmap'])
+def test_answers_and_staged_inputs_are_owned(engine, monkeypatch):
+    """The solver owns what it stages and what it returns: a caller that
+    changes its arrays after ``update`` does not change the next solve, the
+    arrays solve k returned are unchanged after solve k + 1, and
+    ``info.status`` is ``status_string`` of each code, an unknown code
+    too."""
+    B, n, m = 8, 6, 9
+    P, A, q, l, u = _problems(B, n, m, seed=7)
+    if engine == 'vmap':
+        P = np.tile(P, (B, 1, 1))
+    kw = dict(verbose=False, eps_abs=1e-5, eps_rel=1e-5)
+    s = BatchedOSQP(device='cpu', engine=engine).setup(P, q, A, l, u, **kw)
+    twin = BatchedOSQP(device='cpu', engine=engine).setup(P, q, A, l, u, **kw)
+    first = s.solve()
+    twin.solve()
+    kept = {k: np.copy(getattr(first, k)) for k in ('x', 'y', 'prim_inf_cert', 'dual_inf_cert')}
+    kept.update({k: np.copy(getattr(first.info, k))
+                 for k in ('status_val', 'iter', 'obj_val', 'prim_res', 'dual_res')})
+    q2, l2 = q + 0.1, l - 0.1
+    s.update(q=q2, l=l2)
+    twin.update(q=q2.copy(), l=l2.copy())
+    q2 += 5.0
+    l2[:] = 0.0
+    second, want = s.solve(), twin.solve()
+    for k in ('x', 'y'):
+        np.testing.assert_array_equal(getattr(second, k), getattr(want, k))
+    np.testing.assert_array_equal(second.info.iter, want.info.iter)
+    for k, v in kept.items():
+        got = getattr(first, k) if hasattr(first, k) else getattr(first.info, k)
+        np.testing.assert_array_equal(got, v)
+    assert not np.array_equal(second.x, first.x)
+
+    fetch = BatchedOSQP._fetch
+
+    def unknown_codes(self, arrays):
+        h = fetch(self, arrays)
+        h['status'][:3] = (0, 99, -4)
+        return h
+
+    monkeypatch.setattr(BatchedOSQP, '_fetch', unknown_codes)
+    r = s.solve()
+    assert r.info.status[:3] == ['unknown'] * 3
+    assert r.info.status == [status_string(v) for v in r.info.status_val]
+    assert r.info.status[3:] == ['solved'] * (B - 3)

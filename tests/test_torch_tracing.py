@@ -62,13 +62,16 @@ def _fleet(B, n=8, m=12, seed=0):
 
 @pytest.mark.parametrize('B', [64, 512])
 def test_shared_engine_step_spans(B):
-    """A warm step of the shared engine: one span each of update, solve and
-    solve.loop; syncs: update's copy of q, one an epoch (the count of
-    unsolved columns), the straggler compaction's two where the batch
-    compacts (B = 512), the status table's copy, and the eleven arrays of
-    the answer.  ``info.host_syncs`` counts those of the loop and the
-    table."""
+    """A warm step of the shared engine: one span each of update, stage
+    (inside update), solve and solve.loop; syncs: one an epoch (the count
+    of unsolved columns), the straggler compaction's two where the batch
+    compacts (B = 512), and the answer's one copy.  Update's copy of q goes
+    through pinned staging without a wait, and the status table is copied
+    to the device once, at the first solve.  ``info.host_syncs`` counts the
+    loop's syncs.  Every byte of the step but the loop's reads of its counts
+    goes through the staging: q's in, the answer's eleven arrays out."""
     P, q, A, l, u = _fleet(B)
+    n, m = P.shape[0], A.shape[0]
     s = BatchedOSQP(device='cpu', dtype=torch.float32, engine='shared')
     c0 = tracing.counters()
     s.setup(P, q, A, l, u, eps_abs=1e-3, eps_rel=1e-3)
@@ -82,11 +85,17 @@ def test_shared_engine_step_spans(B):
     assert (r.info.status_val == 1).all()
     epochs = -(-int(r.info.iter.max()) // 25)
     compaction = 2 if B >= 512 else 0
-    assert d['update_calls'] == d['solve_calls'] == d['solve_loop_calls'] == 1
+    assert d['update_calls'] == d['stage_calls'] == d['solve_calls'] == 1
+    assert d['solve_loop_calls'] == 1
+    assert d['stage_ns'] <= d['update_ns']
     assert d['sync_loop_calls'] == epochs + compaction
-    assert d['sync_calls'] == 1 + epochs + compaction + 1 + 11
-    assert r.info.host_syncs == epochs + compaction + 1
-    assert d['h2d_bytes'] == B * 8 * 4 + 16
+    assert d['sync_calls'] == epochs + compaction + 1
+    assert r.info.host_syncs == epochs + compaction
+    assert d['h2d_bytes'] == d['pinned_h2d_bytes'] == B * n * 4
+    # x, y, the two certificates, status, iterations, five (B,) values
+    assert d['pinned_d2h_bytes'] == B * 4 * (2 * n + 2 * m + 7)
+    # an epoch reads 8 or 12 bytes, the compaction 8 (and the indices)
+    assert 8 * epochs <= d['d2h_bytes'] - d['pinned_d2h_bytes'] <= 12 * (epochs + compaction)
     assert d['setup_calls'] == d['rho_update_calls'] == 0
 
 
@@ -149,8 +158,8 @@ def test_annotations_nest_as_the_spans():
     ev = _osqp_events(prof)
     names = [e.name for e in ev]
     assert names.count('osqp.update') == names.count('osqp.solve') == 1
-    assert names.count('osqp.solve.loop') == 1
-    assert names.count('osqp.sync') == 1 + epochs + 1 + 11
+    assert names.count('osqp.solve.loop') == names.count('osqp.stage') == 1
+    assert names.count('osqp.sync') == epochs + 1
 
     def inside(e, outer):
         return (outer.time_range.start <= e.time_range.start
@@ -159,9 +168,10 @@ def test_annotations_nest_as_the_spans():
     (upd,) = [e for e in ev if e.name == 'osqp.update']
     (sol,) = [e for e in ev if e.name == 'osqp.solve']
     (loop,) = [e for e in ev if e.name == 'osqp.solve.loop']
-    assert inside(loop, sol)
+    (stage,) = [e for e in ev if e.name == 'osqp.stage']
+    assert inside(loop, sol) and inside(stage, upd)
     syncs = [e for e in ev if e.name == 'osqp.sync']
-    assert sum(inside(e, upd) for e in syncs) == 1
+    assert sum(inside(e, upd) for e in syncs) == 0
     assert sum(inside(e, loop) for e in syncs) == epochs
-    assert sum(inside(e, sol) for e in syncs) == epochs + 12
+    assert sum(inside(e, sol) for e in syncs) == epochs + 1
     assert tracing._thread().annotate == 0
